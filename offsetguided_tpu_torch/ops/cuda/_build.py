@@ -1,0 +1,117 @@
+"""Build `csrc/*.cu` with nvcc at first use and bind them with ctypes.
+
+Each source compiles on its own into `offsetguided_tpu_torch/_build/` (listed
+in `.gitignore`) as a shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+The file name carries a hash of the source, so an edited source rebuilds.
+`build_all()` starts one nvcc per source at once and waits for all of them.
+Every C entry point returns the `cudaGetLastError()` of its launches; the
+callers raise on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / 'csrc'
+BUILD = PKG / '_build'
+SOURCES = ('peaks', 'grouping')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# ptxas report of each build of this process, for `chip_smoke.py`
+build_logs: Dict[str, str] = {}
+
+c_ptr = ctypes.c_void_p
+c_int = ctypes.c_int
+c_float = ctypes.c_float
+
+SIGNATURES = {
+    'peaks': {
+        'og_peaks_tiles': ([c_int, c_int], c_int),
+        'og_peaks_topk': ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr,
+                           c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr], c_int),
+    },
+    'grouping': {
+        'og_group_skeletons': ([c_ptr, c_ptr, c_int, c_int, c_int, c_int,
+                                c_int, c_int, c_int, c_int, c_int, c_float,
+                                c_float, c_ptr, c_ptr, c_ptr, c_ptr], c_int),
+    },
+}
+
+
+def nvcc() -> str:
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels build only on a '
+                           'machine with the CUDA toolkit')
+    return path
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
+                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD / f'lib{name}-{digest}.so'
+
+
+def _start(name: str):
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    build_logs[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{log}')
+    os.replace(tmp, out)
+
+
+def _bind(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn, (args, res) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = args
+        f.restype = res
+    return lib
+
+
+def build_all(names: List[str] = SOURCES) -> None:
+    """Build every missing library in parallel, one nvcc per source."""
+    with _lock:
+        jobs = {n: _start(n) for n in names if n not in _libs}
+        for n, job in jobs.items():
+            _finish(n, job)
+            _libs[n] = _bind(n)
+
+
+def library(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        build_all([name])
+    return _libs[name]
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f'{what}: CUDA error {code}')

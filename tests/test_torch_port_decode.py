@@ -1,0 +1,120 @@
+"""The port's decoder equals the JAX PostProcessor on identical prediction
+maps: the packed (N, L, K, 13) limbs (index columns 6-7 exact) and the
+grouped poses, with flip-test off, on, and with `cat_flip_offs`."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from offsetguided_tpu.config import COCO_PERSON_SIGMAS, COCO_PERSON_SKELETON
+from offsetguided_tpu.config.defaults import DecoderConfig as JDecoderConfig
+from offsetguided_tpu.config.defaults import EncoderConfig
+from offsetguided_tpu.decoder import PostProcessor as JPostProcessor
+from offsetguided_tpu.ops.encoder import encode_targets
+from offsetguided_tpu_torch.config.defaults import DecoderConfig
+from offsetguided_tpu_torch.decoder import PostProcessor
+from offsetguided_tpu_torch.ops import decoder as dec
+
+IMG = 128
+TEMPLATE = np.array([
+    [0.50, 0.07], [0.46, 0.05], [0.54, 0.05], [0.42, 0.07], [0.58, 0.07],
+    [0.36, 0.22], [0.64, 0.22], [0.32, 0.40], [0.68, 0.40], [0.30, 0.57],
+    [0.70, 0.57], [0.41, 0.54], [0.59, 0.54], [0.40, 0.75], [0.60, 0.75],
+    [0.39, 0.95], [0.61, 0.95]], dtype=np.float32)
+
+
+def scene_maps(n, seed=0):
+    """Ground-truth maps of random stick-figure scenes as predictions, with
+    noise on the heatmaps; background offsets stay +inf and background
+    scales NaN, the sentinels the decoder must carry."""
+    rng = np.random.RandomState(seed)
+    anns = np.zeros((n, 3, 17, 4), np.float32)
+    for i in range(n):
+        for p in range(1 + i % 3):
+            box = rng.uniform(40, 70)
+            x0, y0 = rng.uniform(0, IMG - box, 2)
+            anns[i, p, :, 0] = x0 + TEMPLATE[:, 0] * box + rng.rand(17)
+            anns[i, p, :, 1] = y0 + TEMPLATE[:, 1] * box + rng.rand(17)
+            anns[i, p, :, 2] = 2.0
+            anns[i, p, :, 3] = box * np.asarray(COCO_PERSON_SIGMAS)
+    t = encode_targets(jnp.asarray(anns), np.asarray(COCO_PERSON_SIGMAS),
+                       COCO_PERSON_SKELETON, IMG // 4, IMG // 4,
+                       EncoderConfig(max_persons=3))
+    hmp = np.asarray(t.hmp) + 0.02 * rng.rand(*t.hmp.shape).astype(np.float32)
+    return {'hmp': hmp.astype(np.float32), 'jomp': np.asarray(t.jomp),
+            'omp': np.asarray(t.omp), 'scmp': np.asarray(t.scmp) * 0.1}
+
+
+def random_maps(n, seed=0, quantized=False):
+    rng = np.random.RandomState(seed)
+    h = IMG // 4
+    hmp = rng.rand(n, h, h, 17).astype(np.float32) ** 3
+    if quantized:                       # ties in the peak selection
+        hmp = (np.round(hmp * 8) / 8).astype(np.float32)
+    return {'hmp': hmp,
+            'jomp': (rng.randn(n, h, h, 2) * 0.5).astype(np.float32),
+            'omp': (rng.randn(n, h, h, 38) * 4).astype(np.float32),
+            'scmp': (rng.rand(n, h, h, 17) * 8).astype(np.float32)}
+
+
+def both(maps, **kw):
+    kw = dict(dict(topk=12, thre_hmp=0.05, dist_max=40.0), **kw)
+    jpreds = {k: [jnp.asarray(v)] for k, v in maps.items()}
+    jpreds.update(bg=[None], spread=[None])
+    preds = {k: [torch.from_numpy(np.array(v))] for k, v in maps.items()}
+    return (JPostProcessor(cfg=JDecoderConfig(**kw)), jpreds,
+            PostProcessor(cfg=DecoderConfig(**kw)), preds)
+
+
+MAPS = {'scene': lambda n: scene_maps(n),
+        'random': lambda n: random_maps(n, 1),
+        'ties': lambda n: random_maps(n, 2, quantized=True)}
+FLIPS = {'noflip': (False, {}), 'flip': (True, {}),
+         'catflip': (True, dict(cat_flip_offs=True))}
+
+
+@pytest.mark.parametrize('flip', sorted(FLIPS))
+@pytest.mark.parametrize('maps', sorted(MAPS))
+def test_packed_limbs_match_jax(maps, flip):
+    flip_test, kw = FLIPS[flip]
+    jpp, jpreds, pp, preds = both(MAPS[maps](4 if flip_test else 2), **kw)
+    ref = np.asarray(jpp.decode_packed_limbs(jpreds, flip_test))
+    ours = pp.decode_packed_limbs(preds, flip_test).numpy()
+    assert ours.shape == ref.shape
+    np.testing.assert_array_equal(ours[..., 6:8], ref[..., 6:8])
+    # the interpolation weights and limb scores are summed in another order
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('flip', sorted(FLIPS))
+def test_decoded_poses_match_jax(flip):
+    flip_test, kw = FLIPS[flip]
+    jpp, jpreds, pp, preds = both(scene_maps(4 if flip_test else 2, 3),
+                                  person_thre=0.05, **kw)
+    rp, rs, rc = (np.asarray(a) for a in jpp.decode(jpreds, flip_test))
+    p, s, c = (t.numpy() for t in pp.decode_body(preds, flip_test))
+    np.testing.assert_array_equal(c, rc)
+    assert c.sum() > 0
+    np.testing.assert_allclose(s, rs, atol=1e-5)
+    np.testing.assert_allclose(p, rp, atol=1e-3)
+
+
+def test_sample_limb_maps_poisons_nonfinite_footprint():
+    """A sample is +inf when any tap cell is not finite, even at zero
+    weight; other samples keep their value."""
+    maps = torch.ones(1, 6, 6, 2)
+    maps[0, 2, 2, 1] = float('nan')
+    xs = torch.tensor([[[9, 23]]])       # the first reads cell (2, 2)
+    ys = torch.tensor([[[9, 23]]])
+    out = dec.sample_limb_maps(maps, None, xs, ys, 4, 'bicubic')
+    assert out[0, 0, 0, 0] == 1.0 and torch.isinf(out[0, 0, 0, 1])
+    assert torch.all(out[0, 0, 1] == 1.0)
+
+
+@pytest.mark.parametrize('field', [dict(stride=8), dict(nms_kernel=5),
+                                   dict(upsampled_decode=False)])
+def test_postprocessor_rejects_what_the_kernels_do_not_compute(field):
+    """The peaks kernel upsamples x4 with a 3x3 NMS; other settings raise
+    at construction instead of decoding wrongly."""
+    with pytest.raises(NotImplementedError):
+        PostProcessor(cfg=DecoderConfig(**field))

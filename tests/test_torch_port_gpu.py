@@ -1,0 +1,102 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`; each test skips through the `cuda` fixture when no CUDA device
+is present. Needs no JAX, so it runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
+from offsetguided_tpu_torch.config.defaults import DecoderConfig
+from offsetguided_tpu_torch.ops import grouping as plain_grouping
+from offsetguided_tpu_torch.ops.cuda import grouping, peaks
+
+pytestmark = pytest.mark.gpu
+SK = tuple(COCO_PERSON_SKELETON)
+
+
+def person_limbs(rng, n_img, n_persons, K=12, noise=3):
+    """(N, L, K, 13) packed limbs: coherent persons plus invalid noise
+    conns, off-image slots at -99999."""
+    out = np.zeros((n_img, len(SK), K, 13), np.float64)
+    out[..., 0:2] = out[..., 3:5] = -99999.0
+    for i in range(n_img):
+        joints = rng.rand(n_persons, 17, 2) * 100 + 1
+        inds = np.arange(n_persons * 17).reshape(n_persons, 17) + 7
+        for l, (jf, jt) in enumerate(SK):
+            for p in range(n_persons):
+                v1, v2 = 0.5 + 0.5 * rng.rand(2)
+                a, b = joints[p, jf], joints[p, jt]
+                length = max(np.linalg.norm(a - b), 0.5)
+                d = rng.rand() * 2
+                out[i, l, p] = [a[0], a[1], v1, b[0], b[1], v2, inds[p, jf],
+                                inds[p, jt], d, length,
+                                v1 * v2 * np.exp(-d / length), 6.0, 6.0]
+            for q in range(n_persons, min(n_persons + noise, K)):
+                a, b = rng.rand(2, 2) * 100
+                out[i, l, q] = [a[0], a[1], 0.1, b[0], b[1], 0.1,
+                                10000 + rng.randint(10000),
+                                20000 + rng.randint(10000),
+                                25 + rng.rand() * 50, 10.0, 0.01, 6.0, 6.0]
+    return out
+
+
+def sentinel_limbs(rng):
+    x = person_limbs(rng, 2, 3)
+    x[..., 6:8] += 2_500_000.0
+    off = x[..., 0] < -9000.0
+    for c in (0, 1, 8):
+        x[..., c] = np.where(off, np.inf, x[..., c])
+    x[:, ::3, -1, :] = np.nan
+    x[:, 1, 0, 12] = np.nan
+    return x
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('kind', ['pow4', 'ties', 'zeros'])
+@pytest.mark.parametrize('h,w,k', [(40, 40, 32), (24, 36, 48), (8, 8, 200)])
+def test_peaks_kernel_matches_plain(cuda, kind, h, w, k):
+    rng = np.random.RandomState(0)
+    x = rng.rand(6, h, w).astype(np.float32)
+    if kind == 'pow4':
+        x = x ** 4
+    elif kind == 'ties':
+        x = (np.round(x * 8) / 8).astype(np.float32)
+    else:
+        x[:] = 0.0
+        x[:, h // 2, w // 3] = 0.7
+    maps = torch.from_numpy(x).to(cuda)
+    before = peaks.peaks_topk.launches
+    v, ys, xs = peaks.peaks_topk(maps, k)
+    torch.cuda.synchronize()
+    assert peaks.peaks_topk.launches == before + 1
+    pv, pys, pxs = peaks.peaks_topk_plain(maps, k)
+    assert torch.equal(ys, pys) and torch.equal(xs, pxs)
+    assert torch.equal(v, pv)          # same term order: bit-equal
+
+
+@pytest.mark.parametrize('inputs', ['persons', 'sentinels'])
+def test_grouping_kernel_matches_plain(cuda, inputs):
+    rng = np.random.RandomState(1)
+    batch = (person_limbs(rng, 4, 3) if inputs == 'persons'
+             else sentinel_limbs(rng)).astype(np.float32)
+    cfg = DecoderConfig(person_thre=0.06, dist_max=20.0, use_scale=True,
+                        max_poses=8)
+    x = torch.from_numpy(batch).to(cuda)
+    before = grouping.group_skeletons.launches
+    p, s, c = grouping.group_skeletons(x, SK, cfg)
+    torch.cuda.synchronize()
+    assert grouping.group_skeletons.launches == before + 1
+    rp, rs, rc = plain_grouping.group_skeletons(x, SK, cfg)
+    assert torch.equal(c, rc)
+    torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
+    torch.testing.assert_close(p, rp, atol=1e-4, rtol=0)
