@@ -3,23 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from `offsetguided_tpu_torch/csrc/`, holds each
-against its plain PyTorch version at the main path's shapes, serves the full
-Hourglass-104 (random seeded weights, 640x640, batch 8, bf16) with flip-test
-off and on through the port's entry points, and answers concurrent requests
-through the micro-batcher. Each path (flip off, flip on, batcher) zeroes
-the kernels' launch counts before it runs and reads them after; each must
-have launched both kernels. The kernels are timed on the inputs the
-flip-off path gives them. Prints the card, the build, each phase, one
-`{"kernels": [...]}` line, and as its last line
-`{"ok": true, "device": {...}}`. Any failed phase exits non-zero before the
-last line. Needs a CUDA device; never touches JAX.
+Builds the four CUDA kernels from `offsetguided_tpu_torch/csrc/` (one nvcc
+per source, in parallel), holds each against its plain PyTorch version at
+its path's shapes, and drives the port's entry points at full width
+(Hourglass-104, random seeded weights, batch 8, bf16):
+- serving at 640x640 with flip-test off and on, and concurrent requests
+  through the micro-batcher (peaks + grouping kernels);
+- `cli.evaluate.main` over 16 seeded .npy images in the hard set's shapes,
+  fixed height 640 with flip-test (non-square maps: block top-k +
+  grouping kernels) and stride-resolution decode (NMS + top-k + grouping);
+- `cli.simulate.main`, the GT oracle, on the 100-image hard annotations,
+  upsampled (fused peaks) and stride-resolution decode, against the JAX
+  package's recorded APs; and one fixed-height GT batch decoded through
+  the kernels and through the plain versions on the card.
+Each path zeroes the kernels' launch counts just before it runs and reads
+them just after; each must have launched the kernels of its route. Prints
+the card, the build, each phase, one `{"kernels": [...]}` line, and as its
+last line `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
+before the last line. Needs a CUDA device; never touches JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -29,6 +39,12 @@ PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 N_IMG, LONG_EDGE, TOPK = 8, 640, 32
 STRIDE, J, L = 4, 17, 19
+KERNELS = ('peaks', 'grouping', 'topk', 'nms_topk')
+# the JAX package's oracle APs on the 100-image hard set (CPU f32,
+# BENCHMARKS.md): upsampled decode, stride-resolution decode
+ORACLE_AP = {'upsampled': 0.6592, 'lowres': 0.6544}
+ORACLE_ARGS = ['--topk', '32', '--thre-hmp', '0.04', '--dist-max', '40',
+               '--max-persons', '16']
 
 
 def log(msg: str) -> None:
@@ -219,16 +235,55 @@ def phase_grouping(dev, skeleton, records):
         f'{ms:.4f} ms')
 
 
+def _wrappers():
+    from offsetguided_tpu_torch.ops.cuda import grouping, nms_topk, peaks, topk
+    return {'peaks': peaks.peaks_topk, 'grouping': grouping.group_skeletons,
+            'topk': topk.topk, 'nms_topk': nms_topk.nms_topk}
+
+
 def reset_launches():
-    from offsetguided_tpu_torch.ops.cuda import grouping, peaks
-    peaks.peaks_topk.launches = 0
-    grouping.group_skeletons.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from offsetguided_tpu_torch.ops.cuda import grouping, peaks
-    return {'peaks': peaks.peaks_topk.launches,
-            'grouping': grouping.group_skeletons.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def check_launches(path: str, launches: dict, need, never=()) -> None:
+    for name in need:
+        if launches[name] == 0:
+            fail(f'the {path} path never launched the {name} kernel: '
+                 f'{launches}')
+    for name in never:
+        if launches[name] != 0:
+            fail(f'the {path} path launched the {name} kernel: {launches}')
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper swapped for its plain version, also on CUDA
+    tensors (the decode looks the wrappers up on their modules)."""
+    from offsetguided_tpu_torch.ops import grouping as plain_grouping
+    from offsetguided_tpu_torch.ops.cuda import grouping, nms_topk, peaks, topk
+    swaps = [(peaks, 'peaks_topk', peaks.peaks_topk_plain),
+             (topk, 'topk', topk.topk_plain),
+             (nms_topk, 'nms_topk', nms_topk.nms_topk_plain),
+             (grouping, 'group_skeletons', plain_grouping.group_skeletons)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def bits(t):
+    """float32 tensor -> int32 bit patterns (-0.0 differs from +0.0)."""
+    import torch
+    return t.contiguous().view(torch.int32)
 
 
 def phase_full_width(dev):
@@ -276,18 +331,17 @@ def phase_full_width(dev):
             f'{counts.tolist()}, peak memory '
             f'{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, '
             f'kernel launches {launches[path]}')
-        for name, n in launches[path].items():
-            if n == 0:
-                fail(f'the {path} path never launched the {name} kernel')
+        check_launches(path, launches[path], ('peaks', 'grouping'),
+                       never=('topk', 'nms_topk'))
         if int(counts.sum()) == 0:
             fail(f'no poses on the {path} path: grouping did no work')
-    phase_profile(infers[False], images)
+    phase_profile(infers[False], images, 'one flip-off batch')
     return launches, serve, images
 
 
-def phase_profile(infer, images):
-    """Device time of one flip-off batch by kernel, from torch.profiler:
-    categories, the two CUDA kernels, and the device's idle share."""
+def phase_profile(infer, images, what='one flip-off batch'):
+    """Device time of one batch by kernel, from torch.profiler:
+    categories, the port's CUDA kernels, and the device's idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -309,7 +363,7 @@ def phase_profile(infer, images):
     cats = {}
     for name, ms, _ in kernels:
         low = name.lower()
-        if 'peaks_' in low or 'group_kernel' in low:
+        if 'peaks_' in low or 'group_kernel' in low or 'topk_' in low:
             cat = 'CUDA kernels of the port'
         elif any(t in low for t in ('conv', 'gemm', 'xmma', 'cudnn', 'sm90',
                                     'cutlass', 'implicit', 'wgrad', 'dgrad')):
@@ -318,14 +372,14 @@ def phase_profile(infer, images):
             cat = 'other (decode glue, elementwise, copies)'
         cats[cat] = cats.get(cat, 0.0) + ms
     busy = sum(cats.values())
-    log(f'[profile] one flip-off batch: wall {wall_ms:.2f} ms (profiler on), '
+    log(f'[profile] {what}: wall {wall_ms:.2f} ms (profiler on), '
         f'device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}')
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         log(f'[profile]   {cat}: {ms:.3f} ms ({ms / busy:.1%} of busy)')
     for name, ms, n in sorted(kernels, key=lambda r: -r[1])[:10]:
         log(f'[profile]   {ms:8.3f} ms  x{n:<4d} {name[:90]}')
     for name, ms, n in kernels:
-        if 'peaks_' in name or 'group_kernel' in name:
+        if 'peaks_' in name or 'group_kernel' in name or 'topk_' in name:
             log(f'[profile]   port kernel {name[:60]}: {ms:.4f} ms x{n}')
 
 
@@ -496,8 +550,7 @@ def phase_batcher(dev, model_serve):
            for r in results):
         fail('a batcher request got no poses')
     launches = read_launches()
-    if not all(launches.values()):
-        fail(f'the batcher bypassed a kernel: launches {launches}')
+    check_launches('batcher', launches, ('peaks', 'grouping'))
     m = batcher.metrics()
     log(f'[batcher] {len(shapes)} concurrent requests of mixed sizes: all '
         f'answered, poses per request {[len(r) for r in results]}, '
@@ -505,6 +558,307 @@ def phase_batcher(dev, model_serve):
         f'queue + batch), device-batch p50 '
         f'{m["device_batch_p50_ms"]:.1f} ms over {m["batches"]} '
         f'batches, kernel launches {launches}')
+    return launches
+
+
+def fixed_height_images(n: int, seed: int):
+    """`n` seeded 480x640 noise images through the fixed-height evaluator's
+    preprocessing: (n, 640, 1024, 3) uint8."""
+    from offsetguided_tpu_torch.config.defaults import EvalConfig
+    from offsetguided_tpu_torch.eval.harness import preprocess_eval
+    rng = np.random.RandomState(seed)
+    cfg = EvalConfig(long_edge=LONG_EDGE, fixed_height=True)
+    return np.stack([preprocess_eval(
+        rng.randint(0, 256, (480, 640, 3), dtype=np.uint8),
+        np.zeros((0, J, 4), np.float32), cfg)[0] for _ in range(n)])
+
+
+def phase_topk(dev, serve, records):
+    """The block top-k kernel on the fixed-height route's own input: the
+    2x2 block maxima of the NMS'd x4 heatmaps of the full-width model at
+    640x1024, batch 8, (136, 320, 512), k=32; and on three variants of it
+    (1/8-quantized, mostly zero, with -0.0). Timed with its plain version,
+    torch.topk, the whole route, and the fused peaks kernel on the same
+    rectangular maps; then forward, decode and a profile of one
+    fixed-height flip-on batch."""
+    import torch
+    import torch.nn.functional as F
+    from offsetguided_tpu_torch.config.defaults import DecoderConfig
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.eval.harness import make_infer_fn
+    from offsetguided_tpu_torch.ops import decoder as dec
+    from offsetguided_tpu_torch.ops.cuda import peaks, topk
+    from offsetguided_tpu_torch.ops.image import normalize_images
+    from offsetguided_tpu_torch.ops.resize import upsample2d
+
+    model = serve[3]
+    images = torch.from_numpy(fixed_height_images(N_IMG, 5)).to(dev)
+    with torch.inference_mode():
+        hmp = model(normalize_images(images))['hmp'][-1]       # (8, 160, 256, 17)
+        n, h, w, c = hmp.shape
+        nmsed = dec.hmp_nms(upsample2d(hmp, STRIDE, 'bicubic'))
+        bm = F.max_pool2d(nmsed.permute(0, 3, 1, 2), 2, stride=2)
+        m, hb, wb = n * c, bm.shape[2], bm.shape[3]
+        bm = bm.reshape(m, hb * wb).contiguous()
+        maps = hmp.permute(0, 3, 1, 2).reshape(m, h, w).contiguous()
+    g = torch.Generator(device=dev).manual_seed(0)
+    sparse = torch.where(torch.rand(bm.shape, generator=g, device=dev) < 1e-4,
+                         bm, torch.zeros((), device=dev))
+    col = torch.arange(bm.shape[1], device=dev) % 2 == 0
+    inputs = {
+        'model': bm,
+        'eighths': torch.round(bm * 8) / 8,
+        'mostly_zero': sparse,
+        'neg_zero': torch.where((sparse == 0) & col, -0.0, sparse),
+    }
+    for kind, x in inputs.items():
+        v, i = topk.topk(x, TOPK)
+        pv, pi = topk.topk_plain(x, TOPK)
+        torch.cuda.synchronize()
+        if not (torch.equal(i, pi) and torch.equal(bits(v), bits(pv))):
+            fail(f'topk kernel differs from plain on {kind}: '
+                 f'{int((i != pi).sum())} indices of {i.numel()}')
+        log(f'[topk] {kind} ({m}, {hb}x{wb}) k={TOPK}: vals bit-equal, '
+            f'inds identical')
+
+    ms = cuda_time(lambda: topk.topk(bm, TOPK), 20)
+    plain_ms = cuda_time(lambda: topk.topk_plain(bm, TOPK), 5)
+    lib_ms = cuda_time(lambda: torch.topk(bm, TOPK), 20)
+    fused_ms = cuda_time(lambda: peaks.peaks_topk(maps, TOPK), 20)
+    # the whole route the fused kernel would replace on these rectangles
+    with torch.inference_mode():
+        route_ms = cuda_time(lambda: dec.topk_channel_blockreduce(
+            dec.hmp_nms(upsample2d(hmp, STRIDE, 'bicubic')), TOPK), 5)
+    # the fused kernel on the same rectangles: same peaks as the route?
+    with torch.inference_mode():
+        sv, _, sy, sx = dec.topk_channel_blockreduce(nmsed, TOPK)
+    fv, fy, fx = peaks.peaks_topk(maps, TOPK)
+    same = (torch.equal(sy.reshape(m, TOPK), fy)
+            and torch.equal(sx.reshape(m, TOPK), fx)
+            and torch.equal(bits(sv.reshape(m, TOPK)), bits(fv)))
+    n_bytes = bm.numel() * 4 + m * TOPK * 8
+    n_ops = bm.numel()          # one key build + compare per element
+    records['topk'] = dict(
+        name='topk', route='cuda',
+        source='offsetguided_tpu_torch/csrc/topk.cu',
+        replaces='offsetguided_tpu/ops/pallas/topk_pallas.py:19',
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        fused_peaks_ms=fused_ms, route_ms=route_ms, bound=(n_bytes, n_ops))
+    log(f'[topk] ({m}, {hb}x{wb}) k={TOPK}: kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms; the route (upsample '
+        f'+ NMS + block max + kernel + gather) {route_ms:.4f} ms; fused peaks '
+        f'kernel on the same ({m}, {h}, {w}) heatmaps {fused_ms:.4f} ms, same '
+        f'peaks as the route: {same}')
+
+    # where the time goes on the fixed-height path: one flip-on batch
+    pp = PostProcessor(cfg=DecoderConfig(topk=TOPK, thre_hmp=0.04,
+                                         dist_max=40.0))
+    with torch.inference_mode():
+        x = normalize_images(images)
+        x = torch.cat([x, torch.flip(x, dims=(2,))])
+        fwd_ms = cuda_time(lambda: model(x), 5)
+        preds = model(x)
+        dec_ms = cuda_time(lambda: pp.decode_body(preds, flip_test=True), 5)
+    log(f'[topk] fixed-height flip-on batch ({N_IMG} x 640x1024): forward '
+        f'{fwd_ms:.3f} ms, decode (flip merge, upsample, NMS, block top-k, '
+        f'limbs, grouping) {dec_ms:.3f} ms')
+    phase_profile(make_infer_fn(model, pp, True), images,
+                  f'one fixed-height flip-on batch ({N_IMG} x 640x1024)')
+
+
+def phase_nms_topk(dev, serve, records):
+    """The NMS + top-k kernel at (136, 160, 160) and (136, 160, 256) on
+    random^4, quantized and one-NaN maps, and on the stride-resolution
+    route's own input (the full-width model's 640x640 heatmaps), where it
+    is timed with its plain version and max_pool2d NMS + torch.topk."""
+    import torch
+    import torch.nn.functional as F
+    from offsetguided_tpu_torch.ops.cuda import nms_topk
+    from offsetguided_tpu_torch.ops.image import normalize_images
+
+    rng = np.random.RandomState(9)
+    m = N_IMG * J
+    for w in (160, 256):
+        x = rng.rand(m, 160, w).astype(np.float32)
+        nan = x.copy()
+        nan[3, 80, w // 2] = np.nan
+        for kind, arr in (('pow4', x ** 4),
+                          ('quantized', np.round(x * 8) / 8), ('nan', nan)):
+            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(dev)
+            v, i = nms_topk.nms_topk(t, TOPK)
+            pv, pi = nms_topk.nms_topk_plain(t, TOPK)
+            torch.cuda.synchronize()
+            if not (torch.equal(i, pi) and torch.equal(bits(v), bits(pv))):
+                fail(f'nms_topk kernel differs from plain on {kind} '
+                     f'({m}, 160, {w}): {int((i != pi).sum())} indices')
+            log(f'[nms_topk] {kind} ({m}, 160, {w}) k={TOPK}: identical')
+
+    images = torch.from_numpy(np.random.RandomState(7).randint(
+        0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
+    with torch.inference_mode():
+        hmp = serve[3](normalize_images(images))['hmp'][-1]
+    n, h, w, c = hmp.shape
+    maps = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous()
+    v, i = nms_topk.nms_topk(maps, TOPK)
+    pv, pi = nms_topk.nms_topk_plain(maps, TOPK)
+    if not (torch.equal(i, pi) and torch.equal(bits(v), bits(pv))):
+        fail('nms_topk kernel differs from plain on the model heatmaps')
+
+    def library():
+        x = maps[:, None]
+        hmax = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, stride=1)
+        nms = torch.where(hmax == x, x, torch.zeros_like(x))
+        return torch.topk(nms.reshape(n * c, -1), TOPK)
+
+    ms = cuda_time(lambda: nms_topk.nms_topk(maps, TOPK), 20)
+    plain_ms = cuda_time(lambda: nms_topk.nms_topk_plain(maps, TOPK), 5)
+    lib_ms = cuda_time(library, 20)
+    n_bytes = maps.numel() * 4 + n * c * TOPK * 8
+    n_ops = 10 * maps.numel()   # 9-cell max + compare per cell
+    records['nms_topk'] = dict(
+        name='nms_topk', route='cuda',
+        source='offsetguided_tpu_torch/csrc/nms_topk.cu',
+        replaces='offsetguided_tpu/ops/pallas/nms_topk_pallas.py:20',
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound=(n_bytes, n_ops))
+    log(f'[nms_topk] model heatmaps ({n * c}, {h}, {w}) k={TOPK}: identical; '
+        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max_pool2d NMS + '
+        f'torch.topk {lib_ms:.4f} ms')
+
+
+def phase_evaluate(dev, root):
+    """`cli.evaluate.main` at full width over 16 seeded .npy images in the
+    hard set's shapes: fixed height with flip-test, then stride-resolution
+    decode; each path with its own launch counts."""
+    import torch
+    from offsetguided_tpu_torch.cli import evaluate
+    from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
+
+    img_dir, ann = make_hard_dataset(os.path.join(root, 'eval'),
+                                     n_images=16, seed=3, ext='npy')
+    base = ['--image-dir', img_dir, '--annotation-file', ann,
+            '--batch-size', str(N_IMG), '--all-images']
+    paths = {
+        'eval_fixed_height': (['--fixed-height', '--flip-test'],
+                              ('topk', 'grouping'), ('peaks', 'nms_topk')),
+        'eval_lowres': (['--lowres-decode'], ('nms_topk', 'grouping'),
+                        ('peaks', 'topk')),
+    }
+    launches = {}
+    for path, (extra, need, never) in paths.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        stats = evaluate.main(base + extra)
+        torch.cuda.synchronize()
+        launches[path] = read_launches()
+        if not all(np.isfinite(v) for v in stats.values()):
+            fail(f'{path}: non-finite metrics {stats}')
+        log(f'[evaluate] {path}: 16 images, {stats["img_per_s"]:.2f} img/s '
+            f'(host clock, batch {N_IMG}, IO + preprocess + forward + '
+            f'decode), AP {stats["AP"]:.4f} (random weights), peak memory '
+            f'{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, '
+            f'kernel launches {launches[path]}')
+        check_launches(path, launches[path], need, never)
+    return launches
+
+
+def records_by_image(poses, counts, metas, ids):
+    from offsetguided_tpu_torch.data import transforms as T
+    from offsetguided_tpu_torch.eval.harness import poses_to_coco_results
+    poses, counts = poses.cpu().numpy(), counts.cpu().numpy()
+    out = {}
+    for b, img_id in enumerate(ids):
+        inv = T.annotations_inverse(poses[b][:int(counts[b])], metas[b])
+        out[img_id] = {(tuple(np.round(r['keypoints'], 2)),
+                        round(r['score'], 4))
+                       for r in poses_to_coco_results(inv, img_id)}
+    return out
+
+
+def phase_oracle(dev, root):
+    """`cli.simulate.main` on the 100-image hard annotations, upsampled and
+    stride-resolution decode, against the JAX package's APs (within
+    0.002); then one fixed-height batch of encoded GT decoded through the
+    kernels and through the plain versions on the card."""
+    import torch
+    from offsetguided_tpu_torch.cli import simulate
+    from offsetguided_tpu_torch.config.defaults import (
+        DecoderConfig, EncoderConfig, EvalConfig, SkeletonConfig)
+    from offsetguided_tpu_torch.data import synthetic
+    from offsetguided_tpu_torch.data import transforms as T
+    from offsetguided_tpu_torch.data.coco import CocoJson
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.eval.harness import preprocess_eval
+    from offsetguided_tpu_torch.ops.encoder import encode_targets
+
+    ann = synthetic.write_annotations(os.path.join(root, 'oracle'),
+                                      synthetic.hard_annotations(100, seed=0))
+    launches = {}
+    paths = {'upsampled': ([], ('peaks', 'grouping')),
+             'lowres': (['--lowres-decode'], ('nms_topk', 'grouping'))}
+    for name, (extra, need) in paths.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = simulate.main(['--annotation-file', ann] + ORACLE_ARGS + extra)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        path = f'oracle_{name}'
+        launches[path] = read_launches()
+        ap, want = stats['AP'], ORACLE_AP[name]
+        log(f'[oracle] {name} decode, 100 images: AP {ap:.4f} (JAX CPU f32 '
+            f'{want:.4f}), APm {stats["APm"]:.4f}, APl {stats["APl"]:.4f}, '
+            f'{dt:.1f} s, kernel launches {launches[path]}')
+        check_launches(path, launches[path], need)
+        if not abs(ap - want) <= 0.002:
+            fail(f'oracle {name} AP {ap:.4f} is not within 0.002 of {want}')
+
+    # one fixed-height shape: the images that pad to 640x1024
+    skeleton = SkeletonConfig()
+    coco = CocoJson(ann)
+    ecfg = EvalConfig(long_edge=LONG_EDGE, fixed_height=True)
+    enc = EncoderConfig(max_persons=16)
+    padded, metas, ids = [], [], []
+    for img_id in coco.image_ids(with_persons=True, with_keypoints=True):
+        if len(ids) == N_IMG:
+            break
+        info = coco.image_info(img_id)
+        anns = T.normalize_annotations(coco.anns_for_image(img_id),
+                                       skeleton.sigmas)
+        img, anns, meta = preprocess_eval(
+            np.zeros((info['height'], info['width'], 3), np.uint8), anns, ecfg)
+        if img.shape[:2] != (LONG_EDGE, 1024):
+            continue
+        p = np.zeros((enc.max_persons, J, 4), np.float32)
+        p[:min(len(anns), enc.max_persons)] = anns[:enc.max_persons]
+        padded.append(p)
+        metas.append(meta)
+        ids.append(img_id)
+    pp = PostProcessor(skeleton=skeleton, cfg=DecoderConfig(
+        topk=TOPK, thre_hmp=0.04, dist_max=40.0, use_scale=False,
+        person_thre=0.1))
+    with torch.inference_mode():
+        t = encode_targets(torch.from_numpy(np.stack(padded)).to(dev),
+                           skeleton.sigmas, skeleton.skeleton,
+                           LONG_EDGE // STRIDE, 1024 // STRIDE, enc)
+        preds = {'hmp': [t.hmp], 'jomp': [t.jomp], 'omp': [t.omp],
+                 'scmp': [None]}
+        reset_launches()
+        kp, _, kc = pp.decode_body(preds)
+        torch.cuda.synchronize()
+        used = read_launches()
+        with plain_kernels():
+            rp, _, rc = pp.decode_body(preds)
+    check_launches('oracle fixed-height kernel route', used,
+                   ('topk', 'grouping'), never=('peaks', 'nms_topk'))
+    ours = records_by_image(kp, kc, metas, ids)
+    plain = records_by_image(rp, rc, metas, ids)
+    if ours != plain:
+        bad = [i for i in ids if ours[i] != plain[i]]
+        fail(f'fixed-height GT decode: kernel and plain records differ on '
+             f'images {bad}')
+    log(f'[oracle] fixed height 640x1024, {len(ids)} GT images: kernel route '
+        f'(launches {used}) and plain route give identical record sets '
+        f'({sum(len(v) for v in ours.values())} records)')
     return launches
 
 
@@ -530,17 +884,24 @@ def main() -> int:
     phase_main_path_kernels(skeleton, serve, images, records)
     phase_reference(dev, serve)
     launches['batcher'] = phase_batcher(dev, serve)
+    phase_topk(dev, serve, records)
+    phase_nms_topk(dev, serve, records)
+    del serve, images
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        launches.update(phase_evaluate(dev, root))
+        launches.update(phase_oracle(dev, root))
 
     kernels = []
-    for key in ('peaks', 'grouping'):
+    for key in KERNELS:
         r = records[key]
         n_bytes, n_ops = r.pop('bound')
         t_bytes = n_bytes / PEAK_BYTES * 1e3
         t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
         by_path = {path: n[key] for path, n in launches.items()}
         kernels.append(dict(
-            r, launches=by_path['flip_off'] + by_path['flip_on'],
-            launches_by_path=by_path, bound_ms=max(t_bytes, t_ops),
+            r, launches=sum(by_path.values()), launches_by_path=by_path,
+            bound_ms=max(t_bytes, t_ops),
             bound_by='bytes' if t_bytes >= t_ops else 'operations'))
     log(card_line())
     print(json.dumps({'kernels': kernels}), flush=True)

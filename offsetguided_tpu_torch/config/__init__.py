@@ -10,6 +10,7 @@ from .coco import (
 )
 from .defaults import (
     DecoderConfig,
+    EncoderConfig,
     EvalConfig,
     HeadsConfig,
     ModelConfig,
@@ -20,6 +21,6 @@ __all__ = [
     'COCO_KEYPOINTS', 'COCO_PERSON_SIGMAS', 'COCO_PERSON_SKELETON',
     'DATA_MEAN', 'DATA_STD', 'HFLIP',
     'heatmap_hflip', 'offset_hflip',
-    'DecoderConfig', 'EvalConfig', 'HeadsConfig', 'ModelConfig',
+    'DecoderConfig', 'EncoderConfig', 'EvalConfig', 'HeadsConfig', 'ModelConfig',
     'SkeletonConfig',
 ]

@@ -1,7 +1,8 @@
-"""Dataclass configuration for the inference path of the PyTorch port.
+"""Dataclass configuration for the inference and evaluation paths of the
+PyTorch port.
 
 Same fields and defaults as the JAX package's `config/defaults.py` for the
-configs inference reads. Dropped here, because they only steer TPU code:
+configs inference, evaluation and the GT encoder read. Dropped here, because they only steer TPU code:
 `ModelConfig.stem_s2d` (space-to-depth stem), `ModelConfig.remat`,
 `DecoderConfig.peaks_map_batch` (Pallas map batching) and
 `DecoderConfig.pallas_grouping` (the port always takes its CUDA kernels on a
@@ -37,6 +38,22 @@ class SkeletonConfig:
     def offset_flip_indices(self):
         return coco.offset_hflip(self.keypoints, self.skeleton,
                                  dict(self.hflip))
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Ground-truth rendering configuration."""
+    stride: int = 4
+    sigma: float = 7.0
+    gaussian_clip: float = 0.01       # responses below this are zeroed
+    fill_jitter_size: int = 3         # window diameter for jitter-offset fill
+    fill_scale_size: int = 7          # window diameter for guiding-offset/scale fill
+    min_jscale: float = 1.0           # keypoint scales below this become NaN labels
+    include_background: bool = True
+    include_jitter_offset: bool = True
+    include_scale: bool = True
+    max_persons: int = 32             # fixed-shape padding for annotations per image
+    mask_miss_threshold: float = 0.7  # bool threshold after mask downscale
 
 
 @dataclasses.dataclass(frozen=True)

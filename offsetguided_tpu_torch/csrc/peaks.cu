@@ -17,7 +17,8 @@
 // over 64-bit keys, exact by the segment argument (a global top-k block is a
 // top-k block of its tile). Each selection runs as warp-level rounds (one
 // scan + five shuffles per round, no block barrier) over per-warp slices,
-// then one warp over the slices' lists.
+// then one warp over the slices' lists (csrc/topk_select.cuh, shared with
+// topk.cu and nms_topk.cu).
 //
 // Bit parity with the plain PyTorch version (ops/resize.py::upsample2d):
 // the same term order (H pass then W pass, taps in offset order, zero taps
@@ -26,7 +27,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_select.cuh"
+
 namespace {
+
+using og::KEY_NONE;
+using og::key_value;
+using og::make_key;
 
 constexpr int FACTOR = 4;         // upsampling factor (phases per axis)
 constexpr int MAX_TAPS = 5;
@@ -35,7 +42,6 @@ constexpr int UP = 2 * TB + 2;    // upsampled tile edge incl. 1 px NMS halo
 constexpr int UPP = UP + 1;       // padded row pitch
 constexpr int HC = 22;            // source columns one tile's W pass reads
 constexpr int THREADS = 256;
-constexpr unsigned long long KEY_NONE = ~0ull;
 
 struct Taps {
   int n[FACTOR];
@@ -48,49 +54,6 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 __device__ __forceinline__ int floordiv4(int v) { return v >> 2; }  // arithmetic
-
-// Orderable key: ascending key == descending value, then ascending block
-// index; the low bits carry the within-block code.
-__device__ __forceinline__ unsigned long long make_key(float v, uint32_t gb,
-                                                       uint32_t code) {
-  if (v == 0.0f) v = 0.0f;  // -0 ties with +0, as in a value compare
-  uint32_t u = __float_as_uint(v);
-  uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)(~ord) << 32) | (gb * 4u + code);
-}
-
-__device__ __forceinline__ float key_value(unsigned long long key) {
-  uint32_t ord = ~(uint32_t)(key >> 32);
-  uint32_t u = (ord & 0x80000000u) ? (ord & 0x7fffffffu) : ~ord;
-  return __uint_as_float(u);
-}
-
-// The k smallest of src[0..n) in ascending order into dst[0..k), padded with
-// KEY_NONE. Called by a whole warp; each round is one scan and five
-// shuffles, with no block barrier. Keys are unique, so "smallest above the
-// previous pick" walks them in order.
-__device__ void warp_select(const unsigned long long* src, int n, int k,
-                            unsigned long long* dst) {
-  const int lane = threadIdx.x & 31;
-  unsigned long long last = 0;
-  for (int r = 0; r < k; ++r) {
-    unsigned long long v = KEY_NONE;
-    for (int i = lane; i < n; i += 32) {
-      const unsigned long long key = src[i];
-      if ((r == 0 || key > last) && key < v) v = key;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const unsigned long long t = __shfl_xor_sync(0xffffffffu, v, o);
-      v = t < v ? t : v;
-    }
-    if (lane == 0) dst[r] = v;
-    if (v == KEY_NONE) {  // exhausted: pad the rest
-      for (int s = r + 1 + lane; s < k; s += 32) dst[s] = KEY_NONE;
-      break;
-    }
-    last = v;
-  }
-}
 
 // One CTA per (tile of TB x TB blocks, map): upsample the tile with its halo,
 // NMS, block max, then the tile's k smallest keys into `cand`.
@@ -173,25 +136,17 @@ peaks_tile_kernel(const float* __restrict__ maps, int h, int w, int k,
           code = s;
         }
       }
-      key = make_key(best, (uint32_t)(by * WB + bx), code);
+      key = make_key(best, (uint32_t)(by * WB + bx) * 4u + code);
     }
     keys_s[lb] = key;
   }
   __syncthreads();
 
   // top-k in two warp-level selections: each warp's k smallest of its
-  // TB*TB/8 keys, then warp 0 over those 8 lists (exact: a tile top-k key
-  // is a top-k key of its warp's slice)
-  constexpr int NW = THREADS / 32, PER_W = TB * TB / NW;
-  const int warp = threadIdx.x >> 5;
-  const int kw = k < PER_W ? k : PER_W;
-  warp_select(keys_s + warp * PER_W, PER_W, kw, wcand + warp * kw);
-  __syncthreads();
-  if (warp == 0) {
-    const int tiles = gridDim.x * gridDim.y;
-    warp_select(wcand, NW * kw, k,
-                cand + ((size_t)b * tiles + (size_t)ty * gridDim.x + tx) * k);
-  }
+  // TB*TB/8 keys, then warp 0 over those 8 lists
+  const int tiles = gridDim.x * gridDim.y;
+  og::block_select(keys_s, TB * TB / (THREADS / 32), k, wcand,
+                   cand + ((size_t)b * tiles + (size_t)ty * gridDim.x + tx) * k);
 }
 
 // One CTA per map: the k smallest of its tiles' candidate keys, again as
@@ -202,16 +157,9 @@ peaks_merge_kernel(const unsigned long long* __restrict__ cand, int n_cand,
                    int k, int WB, float* __restrict__ vals,
                    int* __restrict__ ys, int* __restrict__ xs) {
   extern __shared__ unsigned long long wc[];
-  constexpr int NW = THREADS / 32;
-  unsigned long long* best = wc + NW * k;
-  const int b = blockIdx.x, warp = threadIdx.x >> 5;
-  const int chunk = (n_cand + NW - 1) / NW;
-  const int lo = warp * chunk < n_cand ? warp * chunk : n_cand;
-  const int hi = lo + chunk < n_cand ? lo + chunk : n_cand;
-  warp_select(cand + (size_t)b * n_cand + lo, hi - lo, k, wc + warp * k);
-  __syncthreads();
-  if (warp == 0) warp_select(wc, NW * k, k, best);
-  __syncthreads();
+  unsigned long long* best = wc + (THREADS / 32) * k;
+  const int b = blockIdx.x;
+  og::merge_select(cand + (size_t)b * n_cand, n_cand, k, wc, best);
   for (int r = threadIdx.x; r < k; r += blockDim.x) {
     const unsigned long long key = best[r];
     const uint32_t lo32 = (uint32_t)key;

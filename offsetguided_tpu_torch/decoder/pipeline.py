@@ -1,11 +1,18 @@
-"""Pose decoding: flip-test merge, peak finding on the x4 bicubic heatmaps,
-limb collection along the guiding offsets, greedy grouping.
+"""Pose decoding: flip-test merge, peak finding, limb collection along the
+guiding offsets, greedy grouping.
 
-Port of the JAX package's `PostProcessor` for the upsampled decode path
-(`upsampled_decode=True`); the stride-resolution branch is not ported yet.
-Peaks go through `ops/cuda/peaks.py` and grouping through
-`ops/cuda/grouping.py`: the CUDA kernels for CUDA tensors, their plain
-versions for CPU tensors.
+Port of the JAX package's `PostProcessor`, routed as it routes on the TPU:
+- `upsampled_decode=True` with square maps and a 3x3 NMS: the fused peaks
+  kernel (`ops/cuda/peaks.py`) on the stride-4 heatmaps;
+- `upsampled_decode=True` otherwise (fixed-height eval's non-square maps,
+  or `nms_kernel != 3`): `upsample2d` + `hmp_nms` in PyTorch, then the
+  block-max top-k kernel (`ops/cuda/topk.py`);
+- `upsampled_decode=False`: decode at stride resolution through the fused
+  NMS + top-k kernel (`ops/cuda/nms_topk.py`, or `joint_dets` for
+  `nms_kernel != 3`), then map cells to input pixels.
+Grouping goes through `ops/cuda/grouping.py`. Each wrapper launches its CUDA
+kernel for a CUDA tensor and takes its plain version for a CPU tensor; the
+call sites look the wrappers up on their modules at call time.
 """
 from __future__ import annotations
 
@@ -17,8 +24,9 @@ import torch
 
 from ..config.defaults import DecoderConfig, SkeletonConfig
 from ..ops import decoder as dec_ops
-from ..ops.cuda.grouping import group_skeletons
+from ..ops.cuda import grouping as cuda_grouping
 from ..ops.cuda.peaks import FACTOR as PEAKS_FACTOR
+from ..ops.resize import upsample2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,13 +36,6 @@ class PostProcessor:
     cfg: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
 
     def __post_init__(self):
-        if not self.cfg.upsampled_decode:
-            raise NotImplementedError(
-                'stride-resolution decode is not ported yet')
-        if self.cfg.scored_offset:
-            raise NotImplementedError('scored_offset is not ported yet')
-        if self.cfg.nms_kernel != 3:
-            raise NotImplementedError('the peaks kernel has a 3x3 NMS')
         if self.cfg.stride != PEAKS_FACTOR:
             raise NotImplementedError(
                 f'the peaks kernel upsamples by {PEAKS_FACTOR}, the maps '
@@ -107,17 +108,57 @@ class PostProcessor:
         if flip_test:
             maps = self.flip_merge(maps)
         cfg = self.cfg
+        s = cfg.stride
+        hmp, omp, scmp = maps['hmp'], maps['omp'], maps['scmp']
         jomp = maps['jomp'] if cfg.use_jitter_offset else None
-        limbs = dec_ops.collect_limbs_peak_fused(
-            maps['hmp'], maps['omp'], self._jf, self._jt, cfg,
-            jomps4=jomp, scmps4=maps['scmp'])
-        return dec_ops.pack_limbs(limbs)
+        if cfg.scored_offset:
+            omp = dec_ops.scored_offset(hmp, omp, self._jf, kernel_size=3)
+        if cfg.upsampled_decode:
+            if hmp.shape[1] == hmp.shape[2] and cfg.nms_kernel == 3:
+                limbs = dec_ops.collect_limbs_peak_fused(
+                    hmp, omp, self._jf, self._jt, cfg, jomps4=jomp,
+                    scmps4=scmp)
+            else:
+                limbs = dec_ops.collect_limbs_peak_sampled(
+                    upsample2d(hmp, s, cfg.resize_mode), omp, self._jf,
+                    self._jt, cfg, jomps4=jomp, scmps4=scmp, stride=s)
+            return dec_ops.pack_limbs(limbs)
+
+        limbs = dec_ops.collect_limbs(hmp, omp / float(s), self._jf,
+                                      self._jt, cfg, scmps=scmp)
+        packed = dec_ops.pack_limbs(limbs)
+        # cell -> input pixel (x * s + s/2 - 0.5) for on-image candidates;
+        # off-image sentinels stay far negative; lengths scale by s
+        xy_cols = [0, 1, 3, 4]
+        coords = packed[..., xy_cols]
+        packed[..., xy_cols] = torch.where(coords > -1000.0,
+                                           coords * s + (s / 2 - 0.5), coords)
+        packed[..., 8:10] *= float(s)
+        if jomp is not None:
+            packed = self._apply_jitter_lowres(packed, jomp, limbs)
+        return packed
+
+    def _apply_jitter_lowres(self, packed, jomp, limbs):
+        """Add the jitter offsets (input-pixel units) at the stride-resolution
+        candidates' cells."""
+        n, h, w, _ = jomp.shape
+        L, k = limbs.ind_f.shape[1:]
+        page = h * w
+        flat = jomp.reshape(n, page, 2)
+
+        def gather(ind):                       # ind (N, L, K) global index
+            idx = (ind % page).reshape(n, L * k, 1).expand(n, L * k, 2)
+            return flat.gather(1, idx).reshape(n, L, k, 2)
+
+        packed[..., 0:2] += gather(limbs.ind_f)
+        packed[..., 3:5] += gather(limbs.ind_t)
+        return packed
 
     def decode_body(self, preds, flip_test: bool = False):
         """preds (PoseNet output) -> (poses, scores, counts); poses are
         (N, max_poses, J, 6) in network-input pixel coordinates."""
         packed = self.decode_packed_limbs(preds, flip_test)
         skeleton = tuple(zip(self._jf.tolist(), self._jt.tolist()))
-        return group_skeletons(packed, skeleton, self.cfg,
-                               n_keypoints=self.skeleton.n_keypoints,
-                               capacity=self.cfg.capacity)
+        return cuda_grouping.group_skeletons(
+            packed, skeleton, self.cfg, n_keypoints=self.skeleton.n_keypoints,
+            capacity=self.cfg.capacity)

@@ -1,37 +1,53 @@
-"""Evaluation building blocks: preprocess, batched forward + decode, COCO
-records.
+"""Evaluation: preprocess, batched forward + decode, COCO records, OKS AP.
 
-Port of the JAX package's `eval/harness.py` for the long-edge mode: every
-image is rescaled and center-padded to (long_edge, long_edge), uint8 goes
-to the device, normalization runs there, and flip-test doubles the batch
-inside the infer function. `run_images` / `validation` and the
-fixed-height mode are not ported yet.
+Port of the JAX package's `eval/harness.py`. Long-edge mode rescales and
+center-pads every image to (long_edge, long_edge); fixed-height mode
+rescales to height `long_edge` and pads the width up to a multiple of
+`width_bucket`, so an epoch runs a few distinct shapes, and `run_images`
+orders images by aspect ratio and flushes a partial batch when the padded
+shape changes. uint8 goes to the device, normalization runs there, and
+flip-test doubles the batch inside the infer function. Images are read
+with `data/coco.py::read_image` (`.npy` without a codec, other formats
+through cv2).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..config.defaults import EvalConfig
+from ..config.defaults import EvalConfig, SkeletonConfig
 from ..data import transforms as T
+from ..data.coco import CocoJson, read_image
 from ..decoder import PostProcessor
 from ..ops.image import normalize_images
 
 
 def preprocess_eval(image: np.ndarray, anns: np.ndarray, cfg: EvalConfig,
                     n_keypoints: int = 17):
-    """Rescale + center pad a uint8 RGB image; returns (image, anns, meta)
-    with the image still uint8 (the device normalizes)."""
-    if cfg.fixed_height:
-        raise NotImplementedError('fixed-height eval is not ported yet')
+    """Rescale + pad a uint8 RGB image; returns (image, anns, meta) with
+    the image still uint8 (the device normalizes)."""
     h, w = image.shape[:2]
     meta = T.make_meta(w, h, n_keypoints)
-    image, anns, meta = T.rescale_long_absolute(image, anns, meta,
+    if not cfg.fixed_height:
+        image, anns, meta = T.rescale_long_absolute(image, anns, meta,
+                                                    cfg.long_edge)
+        return T.center_pad(image, anns, meta, cfg.long_edge)
+    image, anns, meta = T.rescale_high_absolute(image, anns, meta,
                                                 cfg.long_edge)
-    image, anns, meta = T.center_pad(image, anns, meta, cfg.long_edge)
-    return image, anns, meta
+    # only the width pads to the bucket; the height keeps max_stride
+    bucket = max(cfg.width_bucket, cfg.max_stride)
+    if bucket % cfg.max_stride != 0:
+        raise ValueError(
+            f'--width-bucket ({cfg.width_bucket}) must be a multiple of '
+            f'--max-stride ({cfg.max_stride}); effective bucket {bucket} '
+            f'is not')
+    return T.rightdown_pad(image, anns, meta, cfg.max_stride,
+                           w_multiple=bucket)
 
 
 def make_infer_fn(model: torch.nn.Module, pp: PostProcessor,
@@ -69,7 +85,142 @@ def poses_to_coco_results(poses: np.ndarray, image_id: int) -> List[Dict]:
         results.append({'image_id': image_id, 'category_id': 1,
                         'keypoints': kps, 'score': float(v.sum() / len(v))})
     if not results:
-        results.append({'image_id': image_id, 'category_id': 1,
-                        'keypoints': np.zeros(poses.shape[1] * 3).tolist(),
-                        'score': 0.01})
+        results.append(_dummy_record(image_id, poses.shape[1]))
     return results
+
+
+def _dummy_record(image_id: int, n_keypoints: int) -> Dict:
+    return {'image_id': image_id, 'category_id': 1,
+            'keypoints': np.zeros(n_keypoints * 3).tolist(), 'score': 0.01}
+
+
+def _load_eval_image(coco: CocoJson, image_dir: str, img_id: int,
+                     cfg: EvalConfig, n_keypoints: int):
+    """IO + preprocess for one image on a worker thread:
+    (img_id, uint8 image | None, meta | None)."""
+    path = os.path.join(image_dir, coco.image_info(img_id)['file_name'])
+    img = read_image(path)
+    if img is None:
+        logging.getLogger(__name__).warning(
+            'unreadable image %s (id %s): emitting dummy record',
+            path, img_id)
+        return img_id, None, None
+    img, _, meta = preprocess_eval(
+        img, np.zeros((0, n_keypoints, 4), np.float32), cfg, n_keypoints)
+    return img_id, img, meta
+
+
+def eval_image_ids(coco: CocoJson, n_images: Optional[int] = None,
+                   all_images: bool = False) -> List[int]:
+    """The image set `run_images` evaluates: person images (or all images,
+    the test-dev protocol), sorted, optionally truncated. The metric must
+    be restricted to the same set."""
+    ids = coco.image_ids(with_persons=not all_images)
+    return ids[:n_images] if n_images else ids
+
+
+def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
+               image_dir: str, cfg: EvalConfig,
+               n_images: Optional[int] = None,
+               skeleton: Optional[SkeletonConfig] = None,
+               progress: bool = False, all_images: bool = False
+               ) -> List[Dict]:
+    """Evaluate `model` (on its device) over a COCO image set; returns the
+    result dicts. `cfg.io_workers` threads read and preprocess ahead of the
+    device loop through a bounded ordered window, and batch N's poses are
+    fetched only after batch N+1 is dispatched, so host work overlaps the
+    device. Fixed-height batches hold one padded shape: images go in
+    aspect-ratio order and a partial batch is flushed when the shape
+    changes (per-image decode is batch-independent, so the records equal
+    batch-1 records)."""
+    skeleton = skeleton or SkeletonConfig()
+    n_kp = skeleton.n_keypoints
+    device = next(model.parameters()).device
+    ids = eval_image_ids(coco, n_images=n_images, all_images=all_images)
+    batch_size = cfg.batch_size
+    if cfg.fixed_height and batch_size > 1:
+        def aspect(i):
+            info = coco.image_info(i)
+            return info['width'] / max(info['height'], 1)
+        ids = sorted(ids, key=aspect)
+    infer = make_infer_fn(model, pp, cfg.flip_test)
+
+    results: List[Dict] = []
+    pending = None          # (device output, metas, ids, n) awaiting fetch
+
+    def drain():
+        nonlocal pending
+        if pending is None:
+            return
+        (poses, _, counts), metas, bids, n = pending
+        pending = None
+        poses, counts = poses.cpu().numpy(), counts.cpu().numpy()
+        for i in range(n):
+            # drop the zero pose rows before the inverse transform, which
+            # would shift them into spurious detections
+            inv = T.annotations_inverse(poses[i][:int(counts[i])], metas[i])
+            results.extend(poses_to_coco_results(inv, bids[i]))
+
+    def dispatch(imgs, metas, bids):
+        n = len(imgs)
+        imgs = imgs + [np.zeros_like(imgs[0])] * (batch_size - n)
+        out = infer(torch.from_numpy(np.stack(imgs)).to(device))
+        return out, metas, bids, n
+
+    n_workers = max(1, cfg.io_workers)
+    window = max(batch_size * 2, n_workers * 2)
+    batch_imgs, batch_metas, batch_ids = [], [], []
+
+    def flush():
+        nonlocal pending, batch_imgs, batch_metas, batch_ids
+        nxt = dispatch(batch_imgs, batch_metas, batch_ids)
+        drain()                    # host work overlaps the running batch
+        pending = nxt
+        batch_imgs, batch_metas, batch_ids = [], [], []
+
+    with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        futures, submitted, done = [], 0, 0
+
+        def submit_more():
+            nonlocal submitted
+            while submitted < len(ids) and len(futures) < window:
+                futures.append(ex.submit(_load_eval_image, coco, image_dir,
+                                         ids[submitted], cfg, n_kp))
+                submitted += 1
+
+        submit_more()
+        while futures:
+            img_id, img, meta = futures.pop(0).result()
+            submit_more()
+            done += 1
+            if img is None:
+                # every listed image gets a record (test-dev protocol)
+                results.append(_dummy_record(img_id, n_kp))
+            else:
+                if batch_imgs and img.shape != batch_imgs[0].shape:
+                    flush()            # fixed height: the padded width changed
+                batch_imgs.append(img)
+                batch_metas.append(meta)
+                batch_ids.append(img_id)
+                if len(batch_imgs) == batch_size:
+                    flush()
+            if progress and done % 100 == 0:
+                print(f'eval {done}/{len(ids)}')
+    if batch_imgs:
+        flush()
+    drain()
+    return results
+
+
+def validation(model: torch.nn.Module, pp: PostProcessor, ann_file: str,
+               image_dir: str, cfg: EvalConfig, n_images=None,
+               skeleton=None) -> Dict[str, float]:
+    """COCO validation -> OKS metrics over the evaluated images."""
+    from .cocoeval import evaluate_coco_keypoints
+    skeleton = skeleton or SkeletonConfig()
+    coco = CocoJson(ann_file)
+    results = run_images(model, pp, coco, image_dir, cfg, n_images=n_images,
+                         skeleton=skeleton)
+    return evaluate_coco_keypoints(
+        coco, results, skeleton.sigmas,
+        image_ids=eval_image_ids(coco, n_images=n_images))

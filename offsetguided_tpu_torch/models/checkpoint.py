@@ -1,5 +1,7 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across from the JAX package or a reference checkpoint.
 
+`load_reference_checkpoint` reads a reference `.pth` file into a state dict
+for this package's PoseNet, whose modules keep the reference names.
 `state_dict_from_jax` maps the JAX `{'params', 'batch_stats'}` tree (nested
 dicts of numpy arrays, as `jax.tree_util.tree_map(np.asarray, variables)`
 gives) onto this package's PoseNet state dict. The key map is this package's
@@ -139,3 +141,13 @@ def state_dict_from_jax(variables_np: Dict, cfg: ModelConfig
         sd[f'{tp}.weight'] = _oihw(params[f'{hp}/{flax_name}/kernel'])
         sd[f'{tp}.bias'] = f32(params[f'{hp}/{flax_name}/bias'])
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference `.pth` checkpoint -> PoseNet state dict: the dict under
+    `model_state_dict` or `state_dict` (or the file itself), with the
+    `module.` prefix of data-parallel training stripped."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    sd = ckpt.get('model_state_dict', ckpt.get('state_dict', ckpt))
+    return {k[len('module.'):] if k.startswith('module.') else k: v
+            for k, v in sd.items()}

@@ -6,7 +6,9 @@ in `.gitignore`) as a shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source, so an edited source rebuilds.
+The file name carries a hash of the source, of every `csrc/*.cuh` header it
+includes (`#include "<name>.cuh"`, followed into headers) and of the nvcc
+flags, so an edit to any of them rebuilds.
 `build_all()` starts one nvcc per source at once and waits for all of them.
 Every C entry point returns the `cudaGetLastError()` of its launches; the
 callers raise on a non-zero code.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +28,7 @@ from typing import Dict, List
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / 'csrc'
 BUILD = PKG / '_build'
-SOURCES = ('peaks', 'grouping')
+SOURCES = ('peaks', 'grouping', 'topk', 'nms_topk')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -49,7 +52,18 @@ SIGNATURES = {
                                 c_int, c_int, c_int, c_int, c_int, c_float,
                                 c_float, c_ptr, c_ptr, c_ptr, c_ptr], c_int),
     },
+    'topk': {
+        'og_topk_tiles': ([c_int], c_int),
+        'og_topk': ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr, c_ptr],
+                    c_int),
+    },
+    'nms_topk': {
+        'og_nms_topk_tiles': ([c_int, c_int], c_int),
+        'og_nms_topk': ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr,
+                         c_ptr, c_ptr], c_int),
+    },
 }
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([A-Za-z0-9_]+\.cuh)"', re.M)
 
 
 def nvcc() -> str:
@@ -60,10 +74,24 @@ def nvcc() -> str:
     return path
 
 
+def _sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and the `csrc/*.cuh` headers it includes, in
+    inclusion order."""
+    files, todo = [], [CSRC / f'{name}.cu']
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(f.read_bytes())]
+    return files
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f'lib{name}-{digest}.so'
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for f in _sources(name):
+        h.update(f.name.encode() + b'\0' + f.read_bytes())
+    return BUILD / f'lib{name}-{h.hexdigest()[:12]}.so'
 
 
 def _start(name: str):

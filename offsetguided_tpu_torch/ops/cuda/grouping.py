@@ -44,12 +44,13 @@ def group_skeletons(packed_limbs: torch.Tensor, skeleton: Sequence,
     if n == 0:
         return poses, scores, counts
     lib = _build.library('grouping')
-    code = lib.og_group_skeletons(
-        x.data_ptr(), skel.data_ptr(), n, L, K, n_keypoints, capacity,
-        cfg.max_poses, cfg.settle_passes, cfg.sort_dim, int(cfg.use_scale),
-        float(cfg.dist_max), float(cfg.person_thre), poses.data_ptr(),
-        scores.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        code = lib.og_group_skeletons(
+            x.data_ptr(), skel.data_ptr(), n, L, K, n_keypoints, capacity,
+            cfg.max_poses, cfg.settle_passes, cfg.sort_dim,
+            int(cfg.use_scale), float(cfg.dist_max), float(cfg.person_thre),
+            poses.data_ptr(), scores.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, 'grouping kernel launch')
     group_skeletons.launches += 1
     return poses, scores, counts

@@ -58,11 +58,12 @@ def peaks_topk(maps: torch.Tensor, k: int, method: str = 'bicubic'):
     ys = torch.empty((b, k), dtype=torch.int32, device=maps.device)
     xs = torch.empty((b, k), dtype=torch.int32, device=maps.device)
     n, off, w_tab = _tap_arrays(method)
-    stream = torch.cuda.current_stream(maps.device).cuda_stream
-    code = lib.og_peaks_topk(
-        maps.data_ptr(), b, h, w, k, n.ctypes.data, off.ctypes.data,
-        w_tab.ctypes.data, cand.data_ptr(), vals.data_ptr(), ys.data_ptr(),
-        xs.data_ptr(), stream)
+    with torch.cuda.device(maps.device):
+        code = lib.og_peaks_topk(
+            maps.data_ptr(), b, h, w, k, n.ctypes.data, off.ctypes.data,
+            w_tab.ctypes.data, cand.data_ptr(), vals.data_ptr(),
+            ys.data_ptr(), xs.data_ptr(),
+            torch.cuda.current_stream(maps.device).cuda_stream)
     _build.check(code, 'peaks kernel launch')
     peaks_topk.launches += 1
     return vals, ys.long(), xs.long()

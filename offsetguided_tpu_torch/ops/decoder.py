@@ -1,8 +1,9 @@
 """Keypoint detection + guiding-offset limb collection, batched tensors.
 
-Same functions and layouts as the JAX package's `ops/decoder.py` for the
-upsampled decode path: maps are NHWC, candidates are per-channel `(N, C, K)`
-peak sets at full input resolution, and `pack_limbs` gives the reference's
+Same functions and layouts as the JAX package's `ops/decoder.py`: maps are
+NHWC, candidates are per-channel `(N, C, K)` peak sets (at full input
+resolution on the upsampled paths, at stride resolution in
+`collect_limbs`), and `pack_limbs` gives the reference's
 `(N, L, K, 13)` layout
 [x1, y1, v1, x2, y2, v2, ind1, ind2, len_delta, len_limb, limb_score,
 scale1, scale2].
@@ -51,16 +52,36 @@ def stable_topk(vals: torch.Tensor, k: int):
     return v[..., :k], i[..., :k]
 
 
+def topk_channel(scores: torch.Tensor, k: int):
+    """Top-k responses per channel of (N, H, W, C): `(scores, flat_inds,
+    ys, xs)`, each (N, C, K), flat indices row-major over H*W."""
+    n, h, w, c = scores.shape
+    flat = scores.permute(0, 3, 1, 2).reshape(n, c, h * w)
+    vals, inds = stable_topk(flat, k)
+    return vals, inds, inds // w, inds % w
+
+
+def joint_dets(hmps: torch.Tensor, k: int, nms_kernel: int = 3):
+    """NMS + top-k composition."""
+    return topk_channel(hmp_nms(hmps, nms_kernel), k)
+
+
 def topk_channel_blockreduce(scores: torch.Tensor, k: int):
-    """Exact top-k over NMS output (N, H, W, C) through 2x2 block maxima.
+    """Exact top-k over NMS output (N, H, W, C) through 2x2 block maxima
+    (after a 3x3 NMS no two unequal peaks share a 2x2 block). The top-k of
+    the block maxima goes through `ops/cuda/topk.py`: the kernel for a CUDA
+    tensor, `stable_topk` for a CPU tensor.
 
     Returns `(scores, flat_inds, ys, xs)`, each (N, C, K); the position
     inside a block is the first (row-major) maximum."""
+    from .cuda import topk as cuda_topk
+
     n, h, w, c = scores.shape
     hb, wb = h // 2, w // 2
     x = scores.permute(0, 3, 1, 2)                             # (N, C, H, W)
     bvals = F.max_pool2d(x, 2, stride=2)                       # (N, C, hb, wb)
-    topv, topb = stable_topk(bvals.reshape(n, c, hb * wb), k)
+    topv, topb = cuda_topk.topk(bvals.reshape(n * c, hb * wb), k)
+    topv, topb = topv.reshape(n, c, k), topb.reshape(n, c, k)
     by, bx = topb // wb, topb % wb
     ys0, xs0 = by * 2, bx * 2
     flat = x.reshape(n, c, h * w)
@@ -184,6 +205,21 @@ def _collect_from_peaks(scores, ys, xs, h: int, w: int, offs4, jtypes_f,
             pairs.append(torch.where(ok[..., None], g + jit, g))
         guid_t = torch.cat(pairs, dim=-1)
 
+    return _match_limbs(guid_t, (inds_f, scores_f, xys_f, scales_f, jitter_f),
+                        (inds_t, scores_t, xys_t, scales_t, jitter_t), jf, jt,
+                        h * w, cfg, jomps4 is not None)
+
+
+def _match_limbs(guid_t, start, end, jf, jt, page: int, cfg: DecoderConfig,
+                 has_jitter: bool) -> Limbs:
+    """Pair each start candidate's regressed end point `guid_t` (N, L, K, V)
+    with the nearest end candidate (|[g1;g2] - [t;t]| for V = 4) and score
+    the limb. `start` / `end` are (inds, scores, xys, scales, jitter) per
+    limb; `page` is the flat map size of the candidate indices."""
+    inds_f, scores_f, xys_f, scales_f, jitter_f = start
+    inds_t, scores_t, xys_t, scales_t, jitter_t = end
+    n, L, k = scores_f.shape
+    V = guid_t.shape[-1]
     diff = guid_t[:, :, :, None, :] - xys_t.repeat(1, 1, 1, V // 2)[:, :, None]
     dist2 = (diff * diff).sum(dim=-1)                           # (N, L, K, M)
     min_d2, min_ind = dist2.min(dim=-1)
@@ -197,7 +233,6 @@ def _collect_from_peaks(scores, ys, xs, h: int, w: int, offs4, jtypes_f,
     matched_xys_t = xys_t.gather(2, idx2)
     matched_jitter_t = jitter_t.gather(2, idx2)
 
-    page = h * w
     gind_f = inds_f + jf[None, :, None] * page
     gind_t = matched_ind_t + jt[None, :, None] * page
 
@@ -205,7 +240,7 @@ def _collect_from_peaks(scores, ys, xs, h: int, w: int, offs4, jtypes_f,
     len_limb = torch.clamp(torch.sqrt((d * d).sum(dim=-1)), min=cfg.min_len)
     limb_score = scores_f * matched_score_t * torch.exp(-min_dist / len_limb)
 
-    if cfg.use_jitter_offset and jomps4 is not None:
+    if cfg.use_jitter_offset and has_jitter:
         xys_f = xys_f + jitter_f
         matched_xys_t = matched_xys_t + matched_jitter_t
 
@@ -213,6 +248,96 @@ def _collect_from_peaks(scores, ys, xs, h: int, w: int, offs4, jtypes_f,
                  score_t=matched_score_t, ind_f=gind_f, ind_t=gind_t,
                  min_dist=min_dist, len_limb=len_limb, limb_score=limb_score,
                  scale_f=scales_f, scale_t=matched_scale_t)
+
+
+def scored_offset(hmp: torch.Tensor, off: torch.Tensor, jtypes_f,
+                  kernel_size: int = 3) -> torch.Tensor:
+    """Heatmap-score-weighted local average of guiding offsets: `off`
+    (N, H, W, V*L) averaged over a k x k window (zero border) with the
+    start joint's heatmap response as the weight."""
+    n, h, w, c2 = off.shape
+    L = len(jtypes_f)
+    score = hmp[..., list(np.asarray(jtypes_f))]                  # (N, H, W, L)
+    somap = off.reshape(n, h, w, L, c2 // L) * score[..., None]   # (N,H,W,L,V)
+    pad = (kernel_size - 1) // 2
+
+    def box_sum(x):
+        y = F.pad(x.reshape(n, h, w, -1).permute(0, 3, 1, 2),
+                  (pad, pad, pad, pad))
+        acc = None
+        for dy in range(kernel_size):
+            for dx in range(kernel_size):
+                t = y[:, :, dy:dy + h, dx:dx + w]
+                acc = t if acc is None else acc + t
+        return acc.permute(0, 2, 3, 1).reshape(x.shape)
+
+    mean_score = box_sum(score)                                   # (N, H, W, L)
+    weighted = box_sum(somap) / (mean_score[..., None] + 1e-6)
+    return weighted.reshape(n, h, w, c2)
+
+
+def collect_limbs(hmps: torch.Tensor, offs: torch.Tensor, jtypes_f,
+                  jtypes_t, cfg: DecoderConfig,
+                  scmps: Optional[torch.Tensor] = None) -> Limbs:
+    """Limb pairing with every map at one resolution (the stride-resolution
+    decode; the caller adds the jitter offsets after mapping cells to
+    pixels). Candidates per channel come from `ops/cuda/nms_topk.py` for a
+    3x3 NMS (the fused kernel for a CUDA tensor, its plain version for a CPU
+    tensor) and from `joint_dets` for any other window. `offs`
+    (N, H, W, V*L) are in the maps' cell units."""
+    n, h, w, c = hmps.shape
+    L = len(jtypes_f)
+    k = cfg.topk
+    dev = hmps.device
+    jf = torch.as_tensor(np.asarray(jtypes_f), device=dev).long()
+    jt = torch.as_tensor(np.asarray(jtypes_t), device=dev).long()
+
+    if cfg.nms_kernel == 3:
+        from .cuda import nms_topk as cuda_nms
+        bt = hmps.permute(0, 3, 1, 2).reshape(n * c, h, w)
+        vals, flat = cuda_nms.nms_topk(bt, k)
+        scores, inds = vals.reshape(n, c, k), flat.reshape(n, c, k)
+        ys, xs = inds // w, inds % w
+    else:
+        scores, inds, ys, xs = joint_dets(hmps, k, cfg.nms_kernel)
+
+    def channel_dets(jtypes):
+        s = scores[:, jtypes]
+        xy = torch.stack([xs[:, jtypes], ys[:, jtypes]], dim=-1).float()
+        xy = torch.where(s[..., None] < cfg.thre_hmp, xy - 100000.0, xy)
+        i = inds[:, jtypes]
+        if scmps is None:
+            scale = torch.full_like(s, cfg.default_scale)
+        else:
+            scale = scmps.permute(0, 3, 1, 2).reshape(n, c, h * w)[
+                :, jtypes].gather(2, i)
+        return i, s, xy, scale, torch.zeros((n, L, k, 2), device=dev)
+
+    start, end = channel_dets(jf), channel_dets(jt)
+    inds_f, _, xys_f = start[:3]
+    V = offs.shape[-1] // L
+    base = inds_f * (L * V) + (torch.arange(L, device=dev) * V)[None, :, None]
+    idx = torch.stack([base + j for j in range(V)], dim=-1)
+    off_f = offs.reshape(n, h * w * L * V).gather(
+        1, idx.reshape(n, L * k * V)).reshape(n, L, k, V)
+    guid_t = xys_f.repeat(1, 1, 1, V // 2) + off_f
+    return _match_limbs(guid_t, start, end, jf, jt, h * w, cfg, False)
+
+
+def collect_limbs_peak_sampled(hmp_up: torch.Tensor, offs4: torch.Tensor,
+                               jtypes_f, jtypes_t, cfg: DecoderConfig,
+                               jomps4: Optional[torch.Tensor] = None,
+                               scmps4: Optional[torch.Tensor] = None,
+                               stride: int = 4) -> Limbs:
+    """Peaks of the upsampled heatmaps `hmp_up` (N, H, W, C) at full input
+    resolution through NMS (`cfg.nms_kernel`) and the block-reduced exact
+    top-k, then limb pairing; the auxiliary maps stay at stride resolution
+    and are interpolated at the peaks only."""
+    h, w = hmp_up.shape[1:3]
+    scores, _, ys, xs = topk_channel_blockreduce(
+        hmp_nms(hmp_up, cfg.nms_kernel), cfg.topk)
+    return _collect_from_peaks(scores, ys, xs, h, w, offs4, jtypes_f,
+                               jtypes_t, cfg, jomps4, scmps4, stride)
 
 
 def collect_limbs_peak_fused(hmps: torch.Tensor, offs4: torch.Tensor,

@@ -121,11 +121,12 @@ def test_batcher_answers_requests_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """No module of the port imports jax, flax or the JAX package (checked
-    on the source: this interpreter may already hold jax)."""
+    """No module of the port, and not `chip_smoke.py`, imports jax, flax or
+    the JAX package (checked on the source: this interpreter may already
+    hold jax)."""
     banned = ('jax', 'jaxlib', 'flax', 'optax', 'offsetguided_tpu')
     bad = []
-    files = sorted(PKG.rglob('*.py'))
+    files = sorted(PKG.rglob('*.py')) + [PKG.parent / 'chip_smoke.py']
     assert len(files) > 15
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -146,3 +147,25 @@ def test_default_device_is_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             resolve_device()
+
+
+def test_build_hash_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel library's file name changes with the source, with every
+    `csrc/*.cuh` header it includes (also through another header), and with
+    nothing else."""
+    from offsetguided_tpu_torch.ops.cuda import _build
+    assert [f.name for f in _build._sources('topk')] == ['topk.cu',
+                                                         'topk_select.cuh']
+    monkeypatch.setattr(_build, 'CSRC', tmp_path)
+    (tmp_path / 'k.cu').write_text('#include "a.cuh"\n#include <stdint.h>\n')
+    (tmp_path / 'a.cuh').write_text('#pragma once\n  # include "b.cuh"\n')
+    (tmp_path / 'b.cuh').write_text('int b;\n')
+    (tmp_path / 'other.cuh').write_text('int other;\n')
+    first = _build._target('k')
+    (tmp_path / 'other.cuh').write_text('int other2;\n')
+    assert _build._target('k') == first
+    (tmp_path / 'b.cuh').write_text('int b2;\n')
+    second = _build._target('k')
+    assert second != first
+    (tmp_path / 'k.cu').write_text('#include "a.cuh"\n// edit\n')
+    assert _build._target('k') not in (first, second)

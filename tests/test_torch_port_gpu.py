@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+each wrapper launching on its tensor's device whatever device is current.
 
 Marked `gpu`; each test skips through the `cuda` fixture when no CUDA device
 is present. Needs no JAX, so it runs where only PyTorch is installed:
@@ -12,7 +13,7 @@ import torch
 from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
 from offsetguided_tpu_torch.config.defaults import DecoderConfig
 from offsetguided_tpu_torch.ops import grouping as plain_grouping
-from offsetguided_tpu_torch.ops.cuda import grouping, peaks
+from offsetguided_tpu_torch.ops.cuda import grouping, nms_topk, peaks, topk
 
 pytestmark = pytest.mark.gpu
 SK = tuple(COCO_PERSON_SKELETON)
@@ -100,3 +101,74 @@ def test_grouping_kernel_matches_plain(cuda, inputs):
     assert torch.equal(c, rc)
     torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
     torch.testing.assert_close(p, rp, atol=1e-4, rtol=0)
+
+
+def bits(t):
+    """float32 tensor -> its int32 bit patterns (-0.0 differs from +0.0)."""
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize('kind', ['ties', 'zeros', 'neg_zero', 'neg_inf'])
+@pytest.mark.parametrize('m,n,k', [(6, 5000, 32), (3, 700, 48), (2, 40, 40)])
+def test_topk_kernel_matches_plain(cuda, kind, m, n, k):
+    rng = np.random.RandomState(2)
+    x = (np.round(rng.rand(m, n) * 8) / 8).astype(np.float32)
+    if kind == 'zeros':              # most of a top-k past the last peak
+        x = np.where(rng.rand(m, n) < 0.002, x, 0.0).astype(np.float32)
+    elif kind == 'neg_zero':
+        x = np.where(rng.rand(m, n) < 0.01, x, 0.0).astype(np.float32)
+        x[:, ::3] = np.where(x[:, ::3] == 0, -0.0, x[:, ::3])
+    elif kind == 'neg_inf':
+        x = np.where(rng.rand(m, n) < 0.5, -np.inf, x).astype(np.float32)
+    t = torch.from_numpy(x).to(cuda)
+    before = topk.topk.launches
+    v, i = topk.topk(t, k)
+    torch.cuda.synchronize()
+    assert topk.topk.launches == before + 1
+    pv, pi = topk.topk_plain(t, k)
+    assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+
+
+@pytest.mark.parametrize('kind', ['pow4', 'quantized', 'nan'])
+@pytest.mark.parametrize('h,w,k', [(40, 40, 32), (24, 70, 48), (5, 7, 35)])
+def test_nms_topk_kernel_matches_plain(cuda, kind, h, w, k):
+    rng = np.random.RandomState(3)
+    x = rng.rand(5, h, w).astype(np.float32)
+    if kind == 'pow4':
+        x = x ** 4
+    elif kind == 'quantized':
+        x = (np.round(x * 4) / 4).astype(np.float32)
+    else:
+        x[:, h // 2, w // 2] = np.nan
+    t = torch.from_numpy(x).to(cuda)
+    before = nms_topk.nms_topk.launches
+    v, i = nms_topk.nms_topk(t, k)
+    torch.cuda.synchronize()
+    assert nms_topk.nms_topk.launches == before + 1
+    pv, pi = nms_topk.nms_topk_plain(t, k)
+    assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+
+
+def test_kernels_launch_on_the_tensors_device(cuda):
+    """With cuda:0 current, every wrapper launches on the device of its
+    tensor: cuda:0, and cuda:1 where a second card exists."""
+    rng = np.random.RandomState(4)
+    maps = rng.rand(4, 20, 28).astype(np.float32) ** 4
+    limbs = person_limbs(rng, 2, 3).astype(np.float32)
+    cfg = DecoderConfig(max_poses=8)
+    for index in range(min(2, torch.cuda.device_count())):
+        dev = torch.device('cuda', index)
+        m, p = torch.from_numpy(maps).to(dev), torch.from_numpy(limbs).to(dev)
+        with torch.cuda.device(0):
+            got = [peaks.peaks_topk(m, 16), topk.topk(m.reshape(4, -1), 16),
+                   nms_topk.nms_topk(m, 16),
+                   grouping.group_skeletons(p, SK, cfg)[2]]
+            torch.cuda.synchronize(dev)
+        want = [peaks.peaks_topk_plain(m, 16),
+                topk.topk_plain(m.reshape(4, -1), 16),
+                nms_topk.nms_topk_plain(m, 16),
+                plain_grouping.group_skeletons(p, SK, cfg)[2]]
+        for g, w in zip(got, want):
+            for a, b in zip(g if isinstance(g, tuple) else (g,),
+                            w if isinstance(w, tuple) else (w,)):
+                assert a.device == dev and torch.equal(a, b)
