@@ -27,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,6 +71,34 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def launch_split(fn, iters: int = 20) -> dict:
+    """Device milliseconds per launch of a two-launch kernel's tile and
+    merge kernels, by torch.profiler over `iters` calls: {'tile_ms',
+    'merge_ms'}, None where the profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {'tile_ms': None, 'merge_ms': None}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            for part in ('tile', 'merge'):
+                if f'_{part}_kernel' in e.key:
+                    out[f'{part}_ms'] = e.device_time_total / 1e3 / e.count
+    return out
+
+
+def split_text(split: dict) -> str:
+    return ', '.join(f'{k[:-3]} launch ' + ('not measured' if v is None
+                                            else f'{v:.4f} ms')
+                     for k, v in split.items())
 
 
 # --------------------------------------------------------------------------- #
@@ -150,6 +179,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(report: str):
+    """ptxas -v report -> one line per kernel: its name (template argument
+    included), stack frame, spills, registers and shared memory."""
+    out, fn, props = [], None, []
+    for ln in report.splitlines():
+        m = re.search(r'Function properties for (\S+)', ln)
+        if m:
+            k = re.search(r'\d+([a-z][a-z_]*_kernel)(?:ILb([01])E)?', m[1])
+            fn = (k[1] + ('' if k[2] is None else
+                          f'<{"true" if k[2] == "1" else "false"}>')
+                  if k else m[1])
+        elif fn and ('stack frame' in ln or 'registers' in ln):
+            props.append(ln.replace('ptxas info    :', '').strip())
+            if 'registers' in ln:
+                out.append(f'{fn}: ' + '; '.join(props))
+                fn, props = None, []
+    return out
+
+
 def phase_build():
     from offsetguided_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
@@ -157,10 +205,8 @@ def phase_build():
     log(f'[build] {len(_build.SOURCES)} kernels in '
         f'{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)')
     for name in _build.SOURCES:
-        lines = [ln.strip() for ln in _build.build_logs.get(name, '').splitlines()
-                 if 'registers' in ln or 'spill' in ln]
-        for ln in lines:
-            log(f'[build] {name}: {ln}')
+        for ln in ptxas_lines(_build.build_logs.get(name, '')):
+            log(f'[build] {name}.cu {ln}')
 
 
 def phase_peaks(dev, skeleton, records):
@@ -423,6 +469,7 @@ def phase_main_path_kernels(skeleton, serve, images, records):
     ms = cuda_time(lambda: peaks.peaks_topk(maps, TOPK), 20)
     plain_ms = cuda_time(lambda: peaks.peaks_topk_plain(maps, TOPK), 5)
     lib_ms = cuda_time(library, 10)
+    split = launch_split(lambda: peaks.peaks_topk(maps, TOPK))
     H, W = h * STRIDE, w * STRIDE
     n_bytes = maps.numel() * 4 + b * TOPK * 12
     # per map: H pass 7 ops (4 mul + 3 add) per (full-res row, source col),
@@ -430,10 +477,10 @@ def phase_main_path_kernels(skeleton, serve, images, records):
     # 2x2 block
     n_ops = b * (7 * H * w + 16 * H * W + 4 * (H // 2) * (W // 2))
     records['peaks'].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound=(n_bytes, n_ops))
+                            bound=(n_bytes, n_ops), **split)
     log(f'[main-path kernels] peaks ({b}, {h}, {w}) k={TOPK}: identical to '
-        f'plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-        f'interpolate+max_pool+topk {lib_ms:.4f} ms')
+        f'plain; kernel {ms:.4f} ms ({split_text(split)}), plain '
+        f'{plain_ms:.4f} ms, interpolate+max_pool+topk {lib_ms:.4f} ms')
 
     p, s, cnt = grouping.group_skeletons(packed, skeleton, cfg)
     rp, rs, rc = plain.group_skeletons(packed, skeleton, cfg)
@@ -621,9 +668,13 @@ def phase_topk(dev, serve, records):
         log(f'[topk] {kind} ({m}, {hb}x{wb}) k={TOPK}: vals bit-equal, '
             f'inds identical')
 
-    ms = cuda_time(lambda: topk.topk(bm, TOPK), 20)
+    # kernel and torch.topk in turns: kernel, library, library, kernel
+    turns = [cuda_time(fn, 20) for fn in (
+        lambda: topk.topk(bm, TOPK), lambda: torch.topk(bm, TOPK),
+        lambda: torch.topk(bm, TOPK), lambda: topk.topk(bm, TOPK))]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     plain_ms = cuda_time(lambda: topk.topk_plain(bm, TOPK), 5)
-    lib_ms = cuda_time(lambda: torch.topk(bm, TOPK), 20)
+    split = launch_split(lambda: topk.topk(bm, TOPK))
     fused_ms = cuda_time(lambda: peaks.peaks_topk(maps, TOPK), 20)
     # the whole route the fused kernel would replace on these rectangles
     with torch.inference_mode():
@@ -643,9 +694,14 @@ def phase_topk(dev, serve, records):
         source='offsetguided_tpu_torch/csrc/topk.cu',
         replaces='offsetguided_tpu/ops/pallas/topk_pallas.py:19',
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        fused_peaks_ms=fused_ms, route_ms=route_ms, bound=(n_bytes, n_ops))
-    log(f'[topk] ({m}, {hb}x{wb}) k={TOPK}: kernel {ms:.4f} ms, plain '
-        f'{plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms; the route (upsample '
+        fused_peaks_ms=fused_ms, route_ms=route_ms, bound=(n_bytes, n_ops),
+        **split)
+    log(f'[topk] ({m}, {hb}x{wb}) k={TOPK}: kernel {ms:.4f} ms '
+        f'({split_text(split)}; turns {[round(t, 4) for t in turns[::3]]}), '
+        f'torch.topk {lib_ms:.4f} ms (turns '
+        f'{[round(t, 4) for t in turns[1:3]]}), kernel faster than '
+        f'torch.topk: {ms < lib_ms}; plain {plain_ms:.4f} ms')
+    log(f'[topk] the route (upsample '
         f'+ NMS + block max + kernel + gather) {route_ms:.4f} ms; fused peaks '
         f'kernel on the same ({m}, {h}, {w}) heatmaps {fused_ms:.4f} ms, same '
         f'peaks as the route: {same}')
@@ -713,6 +769,7 @@ def phase_nms_topk(dev, serve, records):
     ms = cuda_time(lambda: nms_topk.nms_topk(maps, TOPK), 20)
     plain_ms = cuda_time(lambda: nms_topk.nms_topk_plain(maps, TOPK), 5)
     lib_ms = cuda_time(library, 20)
+    split = launch_split(lambda: nms_topk.nms_topk(maps, TOPK))
     n_bytes = maps.numel() * 4 + n * c * TOPK * 8
     n_ops = 10 * maps.numel()   # 9-cell max + compare per cell
     records['nms_topk'] = dict(
@@ -720,10 +777,10 @@ def phase_nms_topk(dev, serve, records):
         source='offsetguided_tpu_torch/csrc/nms_topk.cu',
         replaces='offsetguided_tpu/ops/pallas/nms_topk_pallas.py:20',
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound=(n_bytes, n_ops))
+        bound=(n_bytes, n_ops), **split)
     log(f'[nms_topk] model heatmaps ({n * c}, {h}, {w}) k={TOPK}: identical; '
-        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max_pool2d NMS + '
-        f'torch.topk {lib_ms:.4f} ms')
+        f'kernel {ms:.4f} ms ({split_text(split)}), plain {plain_ms:.4f} ms, '
+        f'max_pool2d NMS + torch.topk {lib_ms:.4f} ms')
 
 
 def phase_evaluate(dev, root):

@@ -10,15 +10,23 @@
 // 160x160, k=32) the kernel reads 13.9 MB (4 us at 3.35 TB/s) but does about
 // 25 fp32 operations per full-resolution pixel (separable 4-tap upsample,
 // 3x3 max, block compare) over 55.7 M pixels, about 21 us at 67 TFLOP/s.
-// Design against that bound: every CTA computes its upsampled tile once in
-// shared memory (H pass into `hbuf`, W pass into `up`), so each source value
-// is read from L2 a handful of times and no full-resolution value is
-// written out; the top-k is a two-launch selection (per tile, then per map)
-// over 64-bit keys, exact by the segment argument (a global top-k block is a
-// top-k block of its tile). Each selection runs as warp-level rounds (one
-// scan + five shuffles per round, no block barrier) over per-warp slices,
-// then one warp over the slices' lists (csrc/topk_select.cuh, shared with
-// topk.cu and nms_topk.cu).
+// Every CTA computes its upsampled tile once in shared memory, so no
+// full-resolution value is written out, and the top-k is a two-launch
+// selection (per tile, then per map) over 64-bit keys, exact by the segment
+// argument (a global top-k block is a top-k block of its tile).
+//
+// What held the first design back, measured by phase on the card (PERF.md,
+// `kernel_phases.py`): the upsample took two thirds of the tile launch. It
+// indexed the phase table with each pixel's runtime phase, so a warp, whose
+// lanes hold four phases, read four constant-bank addresses per tap,
+// serialised, and its H pass read every tap from L2. The selection (k
+// serial warp rounds per tile, O(n * k)) took most of the rest. Now the
+// tile's source patch is loaded into shared memory once; each thread reads
+// the five source values around one source position once and computes its
+// four phases from them, the phase and offset loops unrolled over a dense
+// weight table, so every table read is a uniform constant operand; the W
+// pass stores the four phases as one float4; and the selection is the
+// linear-time radix select of topk_select.cuh.
 //
 // Bit parity with the plain PyTorch version (ops/resize.py::upsample2d):
 // the same term order (H pass then W pass, taps in offset order, zero taps
@@ -35,18 +43,22 @@ using og::KEY_NONE;
 using og::key_value;
 using og::make_key;
 
-constexpr int FACTOR = 4;         // upsampling factor (phases per axis)
-constexpr int MAX_TAPS = 5;
-constexpr int TB = 32;            // tile edge in 2x2 blocks
-constexpr int UP = 2 * TB + 2;    // upsampled tile edge incl. 1 px NMS halo
-constexpr int UPP = UP + 1;       // padded row pitch
-constexpr int HC = 22;            // source columns one tile's W pass reads
-constexpr int THREADS = 256;
+constexpr int FACTOR = 4;           // upsampling factor (phases per axis)
+constexpr int MAX_TAPS = 5;         // taps of one phase in the C interface
+constexpr int REACH = 2;            // taps reach at most 2 source px away
+constexpr int SPAN = 2 * REACH + 1; // source px one output px can read
+constexpr int TB = 32;              // tile edge in 2x2 blocks
+constexpr int UP = 2 * TB + 2;      // upsampled tile edge incl. 1 px NMS halo
+constexpr int QB = UP / FACTOR + 2; // source px whose 4 phases cover UP px
+constexpr int SRC = QB + 2 * REACH; // source px a tile reads, with the reach
+constexpr int UPX = FACTOR * QB;    // `up` row pitch: the QB px' phases
+constexpr int UX = 3;               // `up` column of full-res column X0 - 1
+constexpr int THREADS = og::SELECT_THREADS;
 
+// Each phase's weights over the offsets -REACH..REACH, 0 where it has no
+// tap; its taps in ascending offset order are the table's tap order.
 struct Taps {
-  int n[FACTOR];
-  int off[FACTOR][MAX_TAPS];
-  float w[FACTOR][MAX_TAPS];
+  float w[FACTOR][SPAN];
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -55,13 +67,36 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 __device__ __forceinline__ int floordiv4(int v) { return v >> 2; }  // arithmetic
 
+// Phase P's taps over the SPAN source values v (offsets -REACH..REACH), in
+// offset order, zero taps skipped. P and the offset are constants after
+// unrolling, so every table read is a uniform constant operand; a missing
+// tap is a select, not a branch, so the four phases schedule as one block.
+template <int P>
+__device__ __forceinline__ float taps_dot(const Taps& taps,
+                                          const float (&v)[SPAN]) {
+  float acc = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int o = 0; o < SPAN; ++o) {
+    const float wt = taps.w[P][o];
+    const float term = __fmul_rn(v[o], wt);
+    const float sum = first ? term : __fadd_rn(acc, term);
+    acc = wt != 0.0f ? sum : acc;
+    first = first && wt == 0.0f;
+  }
+  return acc;
+}
+
 // One CTA per (tile of TB x TB blocks, map): upsample the tile with its halo,
 // NMS, block max, then the tile's k smallest keys into `cand`.
+// Source row/col ib + a (jb + a) of the map has its phases at full-res rows
+// (cols) FACTOR * (ib + a) + p = Y0 - 1 + FACTOR * a + p - UX.
 __global__ void __launch_bounds__(THREADS)
 peaks_tile_kernel(const float* __restrict__ maps, int h, int w, int k,
                   Taps taps, unsigned long long* __restrict__ cand) {
-  __shared__ float hbuf[UP][HC];
-  __shared__ float up[UP][UPP];
+  __shared__ float src[SRC][SRC + 1];
+  __shared__ float hbuf[UP][SRC + 1];
+  __shared__ __align__(16) float up[UP][UPX];
   __shared__ unsigned long long keys_s[TB * TB];
   __shared__ unsigned long long wcand[TB * TB];
 
@@ -69,42 +104,48 @@ peaks_tile_kernel(const float* __restrict__ maps, int h, int w, int k,
   const int HB = H / 2, WB = W / 2;
   const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
   const int Y0 = 2 * TB * ty, X0 = 2 * TB * tx;  // first full-res px of tile
-  const int c0 = floordiv4(X0 - 1) - 2;          // first source column
+  const int ib = floordiv4(Y0 - 1), jb = floordiv4(X0 - 1);
   const float* x = maps + (size_t)b * h * w;
 
-  // H pass: full-res rows Y0-1 .. Y0+2TB, source columns clamp(c0 + c)
-  for (int e = threadIdx.x; e < UP * HC; e += blockDim.x) {
-    const int r = e / HC, c = e % HC;
-    const int Y = Y0 - 1 + r;
-    float acc = 0.0f;
-    if (Y >= 0 && Y < H) {
-      const int i = floordiv4(Y), p = Y & (FACTOR - 1);
-      const int col = clampi(c0 + c, 0, w - 1);
-      for (int t = 0; t < taps.n[p]; ++t) {
-        const float term = __fmul_rn(
-            __ldg(x + (size_t)clampi(i + taps.off[p][t], 0, h - 1) * w + col),
-            taps.w[p][t]);
-        acc = t == 0 ? term : __fadd_rn(acc, term);
-      }
-    }
-    hbuf[r][c] = acc;
+  // source patch: rows ib-2 .., cols jb-2 .., clamped into the map
+  for (int e = threadIdx.x; e < SRC * SRC; e += THREADS) {
+    const int r = e / SRC, c = e % SRC;
+    src[r][c] = __ldg(x + (size_t)clampi(ib - 2 + r, 0, h - 1) * w +
+                      clampi(jb - 2 + c, 0, w - 1));
   }
   __syncthreads();
 
-  // W pass; pixels outside the image are the NMS zero border
-  for (int e = threadIdx.x; e < UP * UP; e += blockDim.x) {
-    const int r = e / UP, c = e % UP;
-    const int Y = Y0 - 1 + r, X = X0 - 1 + c;
-    float acc = 0.0f;
-    if (Y >= 0 && Y < H && X >= 0 && X < W) {
-      const int j = floordiv4(X), p = X & (FACTOR - 1);
-      for (int t = 0; t < taps.n[p]; ++t) {
-        const int cc = clampi(j + taps.off[p][t], 0, w - 1) - c0;
-        const float term = __fmul_rn(hbuf[r][cc], taps.w[p][t]);
-        acc = t == 0 ? term : __fadd_rn(acc, term);
-      }
+  // H pass: the FACTOR phases of source row ib + a at every patch column
+  for (int e = threadIdx.x; e < QB * SRC; e += THREADS) {
+    const int a = e / SRC, c = e % SRC;
+    float col[SPAN];
+#pragma unroll
+    for (int o = 0; o < SPAN; ++o) col[o] = src[a + o][c];
+    float v[FACTOR] = {taps_dot<0>(taps, col), taps_dot<1>(taps, col),
+                       taps_dot<2>(taps, col), taps_dot<3>(taps, col)};
+#pragma unroll
+    for (int p = 0; p < FACTOR; ++p) {
+      const int r = FACTOR * a + p - UX, Y = Y0 - 1 + r;
+      if (r >= 0 && r < UP) hbuf[r][c] = (Y >= 0 && Y < H) ? v[p] : 0.0f;
     }
-    up[r][c] = acc;
+  }
+  __syncthreads();
+
+  // W pass: the FACTOR phases of source column jb + q in row r, one float4;
+  // pixels outside the image are the NMS zero border
+  for (int e = threadIdx.x; e < UP * QB; e += THREADS) {
+    const int r = e / QB, q = e % QB;
+    const int Y = Y0 - 1 + r, X = X0 - 1 + FACTOR * q - UX;
+    float row[SPAN];
+#pragma unroll
+    for (int o = 0; o < SPAN; ++o) row[o] = hbuf[r][q + o];
+    float v[FACTOR] = {taps_dot<0>(taps, row), taps_dot<1>(taps, row),
+                       taps_dot<2>(taps, row), taps_dot<3>(taps, row)};
+#pragma unroll
+    for (int p = 0; p < FACTOR; ++p)
+      if (Y < 0 || Y >= H || X + p < 0 || X + p >= W) v[p] = 0.0f;
+    *reinterpret_cast<float4*>(&up[r][FACTOR * q]) =
+        make_float4(v[0], v[1], v[2], v[3]);
   }
   __syncthreads();
 
@@ -121,7 +162,7 @@ peaks_tile_kernel(const float* __restrict__ maps, int h, int w, int k,
       uint32_t code = 0;
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
-        const int r = 1 + 2 * lby + (s >> 1), c = 1 + 2 * lbx + (s & 1);
+        const int r = 1 + 2 * lby + (s >> 1), c = UX + 1 + 2 * lbx + (s & 1);
         const float v = up[r][c];
         float m = v;
 #pragma unroll
@@ -142,15 +183,14 @@ peaks_tile_kernel(const float* __restrict__ maps, int h, int w, int k,
   }
   __syncthreads();
 
-  // top-k in two warp-level selections: each warp's k smallest of its
-  // TB*TB/8 keys, then warp 0 over those 8 lists
+  // top-k of the tile's keys; array order lb = lby * TB + lbx is index
+  // order, since the key's index (by * WB + bx) * 4 + code grows with lb
   const int tiles = gridDim.x * gridDim.y;
   og::block_select(keys_s, TB * TB / (THREADS / 32), k, wcand,
                    cand + ((size_t)b * tiles + (size_t)ty * gridDim.x + tx) * k);
 }
 
-// One CTA per map: the k smallest of its tiles' candidate keys, again as
-// per-warp selections over slices and one selection over their lists.
+// One CTA per map: the k smallest of its tiles' candidate keys.
 // Dynamic shared memory: (THREADS/32 + 1) * k keys.
 __global__ void __launch_bounds__(THREADS)
 peaks_merge_kernel(const unsigned long long* __restrict__ cand, int n_cand,
@@ -182,17 +222,23 @@ int og_peaks_tiles(int h, int w) {
 
 // maps (B, h, w) f32 -> vals (B, k) f32, ys/xs (B, k) i32 at full resolution.
 // k <= 512 (the merge kernel keeps 9 lists of k keys in shared memory).
-// tap_n (4), tap_off (4x5), tap_w (4x5) are HOST arrays: the phase table.
+// tap_n (4), tap_off (4x5), tap_w (4x5) are HOST arrays: the phase table,
+// each phase's taps nonzero, in ascending offset order within [-2, 2]
+// (cudaErrorInvalidValue otherwise).
 int og_peaks_topk(const float* maps, int B, int h, int w, int k,
                   const int* tap_n, const int* tap_off, const float* tap_w,
                   unsigned long long* cand, float* vals, int* ys, int* xs,
                   void* stream) {
-  Taps taps;
+  Taps taps = {};
   for (int p = 0; p < FACTOR; ++p) {
-    taps.n[p] = tap_n[p];
-    for (int t = 0; t < MAX_TAPS; ++t) {
-      taps.off[p][t] = tap_off[p * MAX_TAPS + t];
-      taps.w[p][t] = tap_w[p * MAX_TAPS + t];
+    if (tap_n[p] < 0 || tap_n[p] > MAX_TAPS) return (int)cudaErrorInvalidValue;
+    for (int t = 0; t < tap_n[p]; ++t) {
+      const int off = tap_off[p * MAX_TAPS + t];
+      const float wt = tap_w[p * MAX_TAPS + t];
+      if (off < -REACH || off > REACH || wt == 0.0f ||
+          (t > 0 && off <= tap_off[p * MAX_TAPS + t - 1]))
+        return (int)cudaErrorInvalidValue;
+      taps.w[p][off + REACH] = wt;
     }
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -9,14 +9,24 @@
 //
 // Bound on an H100 SXM: bytes. At fixed height 640 and batch 8 the widest
 // input is (136, 320 * 512) f32, 89.1 MB read once (26.6 us at 3.35 TB/s);
-// the work is one key build and a few compares per element. A (320, 512)
-// map is 640 KB, more than a block's 227 KB of shared memory, so one CTA
-// cannot hold a map the way one TPU grid step held it in VMEM. Design
-// against that: two launches. The first gives one CTA per (row, tile of
-// 2048 elements), reads the tile once with coalesced loads into 64-bit keys
-// in shared memory and selects the tile's k smallest keys (warp-level
-// rounds, topk_select.cuh); the second merges each row's tile lists. Exact
-// by the segment argument: a row's top-k key is a top-k key of its tile.
+// the work is one key and a few compares per element. A (320, 512) map is
+// 640 KB, more than a block's 227 KB of shared memory, so one CTA cannot hold
+// a map the way one TPU grid step held it in VMEM: two launches. The first
+// gives one CTA per (row, tile of TILE elements) and selects the tile's k
+// smallest 64-bit keys; the second merges each row's tile lists. Exact by
+// the segment argument: a row's top-k key is a top-k key of its tile.
+//
+// The first design (tiles of 2,048 keys in shared memory, k serial warp
+// rounds each, O(n * k)) spent 0.48 of its 0.52 ms tile launch selecting
+// and 0.04 ms loading (PERF.md, `kernel_phases.py`), and lost to
+// torch.topk. Now each thread loads its TILE / 256 values with 16-byte
+// loads where the row allows it (n % 4 == 0 and a 16-byte aligned base;
+// else 4-byte loads) and keeps only their keys' high words, in shared
+// memory (in registers they cost the occupancy that hides each CTA's chain
+// of selection barriers); the selection is the linear-time radix select of
+// topk_select.cuh. Larger tiles cut the merge's input (tiles * k keys per
+// row), smaller ones put more CTAs in flight: TILE = 4096 measured faster
+// than 2048 and 8192 (PERF.md).
 // The output value is read back from the input at the chosen index, so
 // -0.0 and NaN payloads come out bit-equal to the plain version.
 #include <cuda_runtime.h>
@@ -26,27 +36,43 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 2048;                  // elements per CTA of launch 1
-constexpr int PER_THREAD = TILE / THREADS;
+constexpr int THREADS = og::SELECT_THREADS;
+constexpr int TILE = 4096;                  // elements per CTA of launch 1
+constexpr int PER = TILE / THREADS;         // keys a thread
 
+// Slot 4g + j of thread t is element (g * THREADS + t) * 4 + j of the
+// tile: one float4 load where VEC (n % 4 == 0, 16-byte aligned rows), else
+// four 4-byte loads.
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 topk_tile_kernel(const float* __restrict__ x, int n, int k,
                  unsigned long long* __restrict__ cand) {
-  __shared__ unsigned long long keys[TILE];
-  __shared__ unsigned long long wcand[TILE];
+  __shared__ uint4 hs[TILE / 4];
+  __shared__ unsigned long long win[og::MAX_K];
   const int tile = blockIdx.x, row = blockIdx.y;
-  const size_t base = (size_t)row * n;
+  const float* xr = x + (size_t)row * n;
   const int t0 = tile * TILE;
 #pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int i = t0 + q * THREADS + threadIdx.x;
-    keys[q * THREADS + threadIdx.x] =
-        i < n ? og::make_key(__ldg(x + base + i), (uint32_t)i) : og::KEY_NONE;
+  for (int g = 0; g < PER / 4; ++g) {
+    const int i = t0 + (g * THREADS + (int)threadIdx.x) * 4;
+    uint4 q;
+    if (VEC && i < n) {  // n % 4 == 0: the whole float4 is in the row
+      const float4 v = __ldg(reinterpret_cast<const float4*>(xr + i));
+      q = make_uint4(og::key_hi(v.x), og::key_hi(v.y), og::key_hi(v.z),
+                     og::key_hi(v.w));
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = i + j < n ? og::key_hi(__ldg(xr + i + j)) : og::FULL;
+      q = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    hs[g * THREADS + threadIdx.x] = q;   // read back by this thread only
   }
-  __syncthreads();
-  og::block_select(keys, TILE / (THREADS / 32), k, wcand,
-                   cand + ((size_t)row * gridDim.x + tile) * k);
+  const og::RowTile<PER> keys{reinterpret_cast<const uint32_t*>(hs),
+                              (uint32_t)t0};
+  og::select_smallest(keys, k, win,
+                      cand + ((size_t)row * gridDim.x + tile) * k);
 }
 
 // One CTA per row: the k smallest of its tiles' keys. Dynamic shared
@@ -80,7 +106,11 @@ int og_topk(const float* x, int M, int n, int k, unsigned long long* cand,
             float* vals, int* inds, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = og_topk_tiles(n);
-  topk_tile_kernel<<<dim3(tiles, M), THREADS, 0, s>>>(x, n, k, cand);
+  const dim3 grid(tiles, M);
+  if (n % 4 == 0 && ((uintptr_t)x & 15u) == 0)
+    topk_tile_kernel<true><<<grid, THREADS, 0, s>>>(x, n, k, cand);
+  else
+    topk_tile_kernel<false><<<grid, THREADS, 0, s>>>(x, n, k, cand);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(unsigned long long) * (THREADS / 32 + 1) * k;

@@ -121,12 +121,13 @@ def test_batcher_answers_requests_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not `chip_smoke.py`, imports jax, flax or
-    the JAX package (checked on the source: this interpreter may already
-    hold jax)."""
+    """No module of the port, and neither `chip_smoke.py` nor
+    `kernel_phases.py`, imports jax, flax or the JAX package (checked on the
+    source: this interpreter may already hold jax)."""
     banned = ('jax', 'jaxlib', 'flax', 'optax', 'offsetguided_tpu')
     bad = []
-    files = sorted(PKG.rglob('*.py')) + [PKG.parent / 'chip_smoke.py']
+    files = sorted(PKG.rglob('*.py')) + [PKG.parent / 'chip_smoke.py',
+                                         PKG.parent / 'kernel_phases.py']
     assert len(files) > 15
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

@@ -172,3 +172,105 @@ def test_kernels_launch_on_the_tensors_device(cuda):
             for a, b in zip(g if isinstance(g, tuple) else (g,),
                             w if isinstance(w, tuple) else (w,)):
                 assert a.device == dev and torch.equal(a, b)
+
+
+# --- the radix selection's edge cases (csrc/topk_select.cuh) ------------- #
+
+def topk_case(kind, rng):
+    """(x (m, n) float32 numpy, k) for one edge case of the top-k kernel,
+    whose tiles hold 4,096 elements (8,192 and 16,384 are tile
+    boundaries)."""
+    if kind.startswith('k'):                 # k of 1, 31, 33, 512
+        k = int(kind[1:])
+        return (np.round(rng.rand(4, 20000) * 16) / 16).astype(np.float32), k
+    if kind == 'all_zero':
+        return np.zeros((3, 20000), np.float32), 33
+    if kind == 'all_neg_zero':
+        return np.full((3, 20000), -0.0, np.float32), 512
+    if kind == 'ties_across_tiles':
+        # equal values that straddle tile boundaries, under a tie of zeros
+        x = np.zeros((3, 3 * 8192 + 5), np.float32)
+        for i in (8190, 8191, 8192, 8193, 16383, 16384, 16385, 24580):
+            x[:, i] = 0.75
+        x[1, ::2] = 0.75                     # a row with thousands tied
+        return x, 31
+    if kind == 'padded_tile':                # a last tile of 10 elements
+        x = rng.rand(3, 8192 + 10).astype(np.float32)
+        x[:, :8192] = 0.0
+        return x, 33
+    if kind == 'nan_inf':
+        x = rng.rand(5, 9000).astype(np.float32)
+        x[0] = np.nan
+        x[1] = -np.inf
+        x[2, ::7] = np.nan
+        x[3, ::3] = -np.inf
+        x[3, 1::3] = np.inf
+        x[4] = np.where(rng.rand(9000) < 0.5, -np.inf, np.nan)
+        return x.astype(np.float32), 40
+    if kind == 'unaligned_len':              # n % 4 != 0: 4-byte loads
+        return (np.round(rng.rand(4, 8193) * 8) / 8).astype(np.float32), 33
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize('kind', [
+    'k1', 'k31', 'k33', 'k512', 'all_zero', 'all_neg_zero',
+    'ties_across_tiles', 'padded_tile', 'nan_inf', 'unaligned_len'])
+def test_topk_kernel_selection_edges(cuda, kind):
+    x, k = topk_case(kind, np.random.RandomState(5))
+    t = torch.from_numpy(x).to(cuda)
+    v, i = topk.topk(t, k)
+    pv, pi = topk.topk_plain(t, k)
+    torch.cuda.synchronize()
+    assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+
+
+def test_topk_kernel_unaligned_base(cuda):
+    """A contiguous row block whose base is not 16-byte aligned takes the
+    4-byte loads even though n % 4 == 0."""
+    rng = np.random.RandomState(6)
+    m, n = 3, 8192 + 4
+    flat = torch.from_numpy(
+        (np.round(rng.rand(m * n + 1) * 8) / 8).astype(np.float32)).to(cuda)
+    t = flat[1:].view(m, n)
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    v, i = topk.topk(t, 33)
+    pv, pi = topk.topk_plain(t, 33)
+    torch.cuda.synchronize()
+    assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+
+
+@pytest.mark.parametrize('kind', ['constant', 'pow4', 'zeros'])
+@pytest.mark.parametrize('h,w,k', [(17, 17, 33), (25, 39, 1), (25, 39, 31),
+                                   (17, 23, 512)])
+def test_peaks_kernel_selection_edges(cuda, kind, h, w, k):
+    """Ragged edge tiles (a 2x2-block tile is 32 blocks a side, so the
+    corner tiles of 17x17 hold 2x2 blocks, fewer than k: KEY_NONE padding);
+    a constant map ties every block, across tiles; all-zero maps tie at 0."""
+    rng = np.random.RandomState(7)
+    x = rng.rand(5, h, w).astype(np.float32)
+    if kind == 'constant':
+        x[:] = 0.5
+    elif kind == 'pow4':
+        x = x ** 4
+    else:
+        x[:] = 0.0
+    maps = torch.from_numpy(x).to(cuda)
+    v, ys, xs = peaks.peaks_topk(maps, k)
+    pv, pys, pxs = peaks.peaks_topk_plain(maps, k)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, pys) and torch.equal(xs, pxs)
+    assert torch.equal(bits(v), bits(pv))
+
+
+@pytest.mark.parametrize('k', [1, 31, 33, 512])
+def test_nms_topk_kernel_selection_edges(cuda, k):
+    """The shared selection through nms_topk.cu: zero runs after NMS, and
+    k past every tile's valid cells (a 33x40 map's edge tiles)."""
+    rng = np.random.RandomState(8)
+    x = (np.round(rng.rand(4, 33, 40) * 4) / 4).astype(np.float32) ** 2
+    x[1] = 0.0
+    t = torch.from_numpy(x).to(cuda)
+    v, i = nms_topk.nms_topk(t, k)
+    pv, pi = nms_topk.nms_topk_plain(t, k)
+    torch.cuda.synchronize()
+    assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))

@@ -1,0 +1,104 @@
+"""What of the selection kernels' tooling runs without a card: the phase
+cuts of `kernel_phases.py` still find their anchors in `csrc/`, the ptxas
+report lines of `chip_smoke.py` name each kernel, and the peaks kernel's
+dense tap table (weights over offsets -2..2, summed in offset order) gives
+`upsample2d`'s terms in `upsample2d`'s order, bit for bit.
+"""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+import kernel_phases  # noqa: E402
+from offsetguided_tpu_torch.ops.cuda import peaks  # noqa: E402
+from offsetguided_tpu_torch.ops.resize import upsample2d  # noqa: E402
+
+CSRC = ROOT / 'offsetguided_tpu_torch' / 'csrc'
+
+
+def kernel_body(src: str, name: str, next_name: str) -> str:
+    return src[src.index(f'{name}('):src.index(f'{next_name}(')]
+
+
+def test_phase_cuts_find_their_anchors():
+    v = kernel_phases.variants(CSRC)
+    assert set(v) == {('peaks', 'full'), ('peaks', 'no_select'),
+                      ('peaks', 'no_nms'), ('topk', 'full'),
+                      ('topk', 'no_select'), ('topk', 'tile_2048'),
+                      ('topk', 'tile_8192')}
+    full = kernel_body(v['peaks', 'full'], 'peaks_tile_kernel',
+                       'peaks_merge_kernel')
+    assert 'og::block_select(' in full and 'make_key(' in full
+    cut = kernel_body(v['peaks', 'no_select'], 'peaks_tile_kernel',
+                      'peaks_merge_kernel')
+    assert 'og::block_select(' not in cut and 'og_phase_sink(' in cut
+    assert 'make_key(' in cut
+    cut = kernel_body(v['peaks', 'no_nms'], 'peaks_tile_kernel',
+                      'peaks_merge_kernel')
+    assert 'make_key(' not in cut and 'og_phase_sink_f(' in cut
+    assert 'og::select_smallest(' in v['topk', 'full']
+    assert 'og::select_smallest(' not in v['topk', 'no_select']
+    for tile in (2048, 8192):
+        assert f'constexpr int TILE = {tile};' in v['topk', f'tile_{tile}']
+
+
+def test_ptxas_lines_name_each_kernel():
+    report = '\n'.join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_116topk_tile_kernelILb0EEEvPKfiiPy' for 'sm_90a'",
+        'ptxas info    : Function properties for '
+        '_ZN12_GLOBAL__N_116topk_tile_kernelILb0EEEvPKfiiPy',
+        '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+        'ptxas info    : Used 56 registers, used 1 barriers, 5184 bytes smem',
+        'ptxas info    : Function properties for '
+        '_ZN12_GLOBAL__N_117peaks_tile_kernelEPKfiiiNS_4TapsEPy',
+        '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+        'ptxas info    : Used 45 registers, used 1 barriers, 44576 bytes smem',
+    ])
+    assert chip_smoke.ptxas_lines(report) == [
+        'topk_tile_kernel<false>: 0 bytes stack frame, 0 bytes spill stores, '
+        '0 bytes spill loads; Used 56 registers, used 1 barriers, 5184 bytes '
+        'smem',
+        'peaks_tile_kernel: 0 bytes stack frame, 0 bytes spill stores, 0 '
+        'bytes spill loads; Used 45 registers, used 1 barriers, 44576 bytes '
+        'smem']
+
+
+def dense_upsample_axis0(x, dense):
+    """The kernel's arithmetic along axis 0: output row Y of phase Y & 3 is
+    the sum over offsets o of x[clamp((Y >> 2) + o - 2)] * dense[p, o],
+    nonzero weights only, in ascending offset order, in float32."""
+    rows = []
+    for Y in range(4 * x.shape[0]):
+        i, p = Y >> 2, Y & 3
+        acc = np.zeros(x.shape[1:], np.float32)
+        first = True
+        for o in range(5):
+            if dense[p, o] != 0.0:
+                term = x[np.clip(i + o - 2, 0, x.shape[0] - 1)] * dense[p, o]
+                acc = term if first else (acc + term).astype(np.float32)
+                first = False
+        rows.append(acc)
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize('method', ['bicubic', 'bilinear', 'nearest'])
+def test_dense_tap_table_keeps_the_plain_term_order(method):
+    n, off, w = peaks._tap_arrays(method)
+    dense = np.zeros((4, 5), np.float32)     # as og_peaks_topk builds it
+    for p in range(4):
+        for t in range(n[p]):
+            assert w[p, t] != 0.0 and (t == 0 or off[p, t] > off[p, t - 1])
+            dense[p, off[p, t] + 2] = w[p, t]
+    x = np.random.RandomState(0).rand(7, 9).astype(np.float32) ** 3
+    got = dense_upsample_axis0(dense_upsample_axis0(x, dense).T, dense).T
+    want = upsample2d(torch.from_numpy(x)[None, ..., None], 4,
+                      method)[0, ..., 0].numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
