@@ -5,8 +5,10 @@
 
 Builds the four CUDA kernels from `offsetguided_tpu_torch/csrc/` (one nvcc
 per source, in parallel), holds each against its plain PyTorch version at
-its path's shapes, and drives the port's entry points at full width
-(Hourglass-104, random seeded weights, batch 8, bf16):
+its path's shapes (grouping also on a capacity-128 crowd at top-k 96 and
+on the JAX package's adversarial and overflow inputs), and drives the
+port's entry points at full width (Hourglass-104, random seeded weights,
+batch 8, bf16):
 - serving at 640x640 with flip-test off and on, and concurrent requests
   through the micro-batcher (peaks + grouping kernels);
 - `cli.evaluate.main` over 16 seeded .npy images in the hard set's shapes,
@@ -73,10 +75,11 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def launch_split(fn, iters: int = 20) -> dict:
-    """Device milliseconds per launch of a two-launch kernel's tile and
-    merge kernels, by torch.profiler over `iters` calls: {'tile_ms',
-    'merge_ms'}, None where the profiler recorded no device time."""
+def launch_split(fn, iters: int = 20, parts=('tile', 'merge')) -> dict:
+    """Device milliseconds per launch of each `<part>_kernel` that `fn`
+    launches (by default a two-launch kernel's tile and merge kernels), by
+    torch.profiler over `iters` calls: {'tile_ms', 'merge_ms'}, None where
+    the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -86,11 +89,11 @@ def launch_split(fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {'tile_ms': None, 'merge_ms': None}
+    out = {f'{part}_ms': None for part in parts}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
-            for part in ('tile', 'merge'):
-                if f'_{part}_kernel' in e.key:
+            for part in parts:
+                if f'{part}_kernel' in e.key:
                     out[f'{part}_ms'] = e.device_time_total / 1e3 / e.count
     return out
 
@@ -153,6 +156,172 @@ def peak_inputs(b: int, h: int, w: int, skeleton):
     }
 
 
+def crowd_limbs(n_img: int, K: int, seed: int, L: int = L):
+    """(n_img, L, K, 13) float32 packed limbs of a dense crowd on the COCO
+    skeleton's first L limbs: 9 in 10 candidates valid, keypoint indices
+    per joint drawn from a pool of 2K, so that rows extend, collide, merge
+    and run out of free rows; scores quantized to hundredths, so that ties
+    are common."""
+    from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
+    rng = np.random.RandomState(seed)
+    out = np.zeros((n_img, L, K, 13), np.float32)
+    for l, (jf, jt) in enumerate(COCO_PERSON_SKELETON[:L]):
+        shape = (n_img, K)
+        out[:, l, :, 0:2] = rng.uniform(1, 600, shape + (2,))
+        out[:, l, :, 2] = rng.uniform(0.1, 1, shape)
+        out[:, l, :, 3:5] = rng.uniform(1, 600, shape + (2,))
+        out[:, l, :, 5] = rng.uniform(0.1, 1, shape)
+        out[:, l, :, 6] = jf * 100_000 + rng.randint(2 * K, size=shape)
+        out[:, l, :, 7] = jt * 100_000 + rng.randint(2 * K, size=shape)
+        out[:, l, :, 8] = np.where(rng.rand(*shape) < 0.9, 1.0, 50.0)
+        out[:, l, :, 9] = 10.0
+        out[:, l, :, 10] = np.round(rng.rand(*shape), 2)
+        out[:, l, :, 11:13] = 6.0
+    return out
+
+
+# the grouping inputs of the JAX package's adversarial and overflow tests
+# (tests/test_grouping_adversarial.py, tests/test_grouping_overflow.py),
+# rebuilt here without JAX; tests/test_torch_port_grouping_adversarial.py
+# holds these functions equal to those on the CPU
+
+SK4, J4 = ((1, 3), (1, 2)), 5
+FUZZ_SK, FUZZ_J = ((1, 3), (2, 4), (1, 2), (3, 4), (4, 5)), 7
+CROWD_SK = tuple((i % 17, (i + 1) % 17) for i in range(19))
+ADV_CFG = dict(person_thre=0.01, dist_max=20.0, use_scale=False, max_poses=8)
+
+
+def conn(x1, y1, v1, x2, y2, v2, i1, i2, delta, length, score, s1=6.0,
+         s2=6.0):
+    return [x1, y1, v1, x2, y2, v2, i1, i2, delta, length, score, s1, s2]
+
+
+def empty_limbs(L, K):
+    limbs = np.zeros((L, K, 13), dtype=np.float64)
+    limbs[:, :, 0:2] = -99999.0
+    limbs[:, :, 3:5] = -99999.0
+    return limbs
+
+
+def chain_limbs():
+    """Three rows spawned from one shared start keypoint, co-extended by one
+    conn at the final limb type: three merge pairs at once."""
+    limbs = empty_limbs(2, 4)
+    limbs[0, 0] = conn(10, 10, .9, 14, 20, .8, 101, 103, 1.0, 10.0, .70)
+    limbs[0, 1] = conn(10, 10, .9, 10, 21, .8, 101, 999, 1.0, 10.0, .65)
+    limbs[0, 2] = conn(10, 10, .9, 6, 20, .8, 101, 303, 1.0, 10.0, .60)
+    limbs[1, 0] = conn(10, 10, .9, 10, 15, .85, 101, 102, 1.0, 5.0, .80)
+    return limbs
+
+
+def equal_tie_limbs():
+    """Two conns with equal scores and one end index: the first is kept."""
+    limbs = empty_limbs(2, 4)
+    limbs[0, 0] = conn(10, 10, .9, 14, 20, .8, 101, 103, 1.0, 10.0, .5)
+    limbs[0, 1] = conn(30, 30, .9, 14, 20, .8, 201, 103, 1.0, 10.0, .5)
+    return limbs
+
+
+def extension_tie_limbs():
+    """Two conns of one type extend one row at the same joint."""
+    limbs = empty_limbs(2, 4)
+    limbs[0, 0] = conn(10, 10, .9, 14, 20, .8, 101, 103, 1.0, 10.0, .7)
+    limbs[1, 0] = conn(10, 10, .9, 10, 15, .9, 101, 102, 1.0, 5.0, .8)
+    limbs[1, 1] = conn(10, 10, .9, 12, 15, .6, 101, 202, 1.0, 5.0, .3)
+    return limbs
+
+
+def fuzz_trials(rng, n=10):
+    """The tie-prone fuzz of test_adversarial_fuzz_three_way_parity, drawn
+    in its order: shared starts, quantized scores, deltas straddling
+    dist_max, off-image pushes. One (5, 6, 13) limb block per trial."""
+    out = []
+    for _ in range(n):
+        K = 6
+        limbs = empty_limbs(len(FUZZ_SK), K)
+        ind_pool = rng.randint(100, 112, size=40)
+        for l in range(len(FUZZ_SK)):
+            for k in range(K):
+                if rng.rand() < 0.25:
+                    continue
+                i1 = int(ind_pool[rng.randint(len(ind_pool))])
+                i2 = int(ind_pool[rng.randint(len(ind_pool))])
+                score = round(float(rng.rand()), 1)
+                delta = float(rng.choice([1.0, 19.9, 20.0, 25.0]))
+                x1, y1 = float(rng.randint(1, 50)), float(rng.randint(1, 50))
+                x2, y2 = float(rng.randint(1, 50)), float(rng.randint(1, 50))
+                if rng.rand() < 0.15:
+                    x1 = -99999.0
+                limbs[l, k] = conn(x1, y1, .9, x2, y2, .8, i1, i2, delta,
+                                   10.0, score)
+        out.append(limbs)
+    return out
+
+
+def make_crowd(n_limbs_valid, k=96, L=19):
+    """(1, L, K, 13): limb type 0 has `n_limbs_valid` disjoint valid
+    candidates in descending score, the other types none."""
+    packed = np.zeros((1, L, k, 13), np.float32)
+    packed[..., 0:2] = -100000.0
+    packed[..., 3:5] = -100000.0
+    for i in range(n_limbs_valid):
+        x = 10.0 + 6.0 * i
+        packed[0, 0, i, 0:3] = [x, 10.0, 0.9]
+        packed[0, 0, i, 3:6] = [x, 20.0, 0.9]
+        packed[0, 0, i, 6] = 1000 + 2 * i
+        packed[0, 0, i, 7] = 1001 + 2 * i
+        packed[0, 0, i, 8] = 1.0
+        packed[0, 0, i, 9] = 10.0
+        packed[0, 0, i, 10] = 1.0 - 0.005 * i
+        packed[0, 0, i, 11:13] = 5.0
+    return packed
+
+
+def crowd_cfg(capacity):
+    return dict(topk=96, dist_max=40.0, use_scale=False, person_thre=0.05,
+                max_poses=96, capacity=capacity)
+
+
+def adversarial_cases():
+    """name -> (packed (N, L, K, 13) float32, skeleton, J, DecoderConfig
+    keywords, the capacity among them) for every input of the JAX
+    adversarial and overflow tests."""
+    cases = {
+        'chain': (chain_limbs()[None], SK4, J4, ADV_CFG),
+        'chain_no_settle': (chain_limbs()[None], SK4, J4,
+                            dict(ADV_CFG, settle_passes=0)),
+        'equal_tie': (equal_tie_limbs()[None], SK4, J4, ADV_CFG),
+        'extension_tie': (extension_tie_limbs()[None], SK4, J4, ADV_CFG),
+        'fuzz': (np.stack(fuzz_trials(np.random.RandomState(0))), FUZZ_SK,
+                 FUZZ_J, dict(ADV_CFG, max_poses=12)),
+    }
+    for n_valid, cap in ((40, 64), (78, 64), (78, 128)):
+        cases[f'crowd_{n_valid}_{cap}'] = (make_crowd(n_valid), CROWD_SK, 17,
+                                           crowd_cfg(cap))
+    return {name: (x.astype(np.float32), sk, j, dict(cfg, capacity=cfg.get(
+        'capacity', 64))) for name, (x, sk, j, cfg) in cases.items()}
+
+
+def pose_sets_match(p, rp, counts, atol: float) -> bool:
+    """Per image, the first counts[i] pose rows of `p` and `rp` match one
+    to one within `atol` (greedily, in order, as the JAX package's
+    adversarial tests match them: poses whose scores tie to the last bit of
+    a float sum may swap places), and the rows after them are equal."""
+    p, rp = p.cpu().numpy(), rp.cpu().numpy()
+    for i, c in enumerate(counts.tolist()):
+        c = min(c, p.shape[1])
+        if not np.array_equal(p[i, c:], rp[i, c:]):
+            return False
+        unused = list(range(c))
+        for row in p[i, :c]:
+            hit = next((j for j in unused
+                        if np.allclose(row, rp[i, j], rtol=0, atol=atol)), None)
+            if hit is None:
+                return False
+            unused.remove(hit)
+    return True
+
+
 def with_sentinels(packed):
     """Copy of packed limbs with +inf off-image rows, NaN rows and one NaN
     scale, and keypoint indices lifted by 2.5 M."""
@@ -186,10 +355,11 @@ def ptxas_lines(report: str):
     for ln in report.splitlines():
         m = re.search(r'Function properties for (\S+)', ln)
         if m:
-            k = re.search(r'\d+([a-z][a-z_]*_kernel)(?:ILb([01])E)?', m[1])
-            fn = (k[1] + ('' if k[2] is None else
-                          f'<{"true" if k[2] == "1" else "false"}>')
-                  if k else m[1])
+            k = re.search(r'\d+([a-z][a-z_]*_kernel)(?:IL([bi])(\d+)E)?',
+                          m[1])
+            arg = None if not k or k[2] is None else (
+                k[3] if k[2] == 'i' else 'true' if k[3] == '1' else 'false')
+            fn = (k[1] + ('' if arg is None else f'<{arg}>')) if k else m[1]
         elif fn and ('stack frame' in ln or 'registers' in ln):
             props.append(ln.replace('ptxas info    :', '').strip())
             if 'registers' in ln:
@@ -242,43 +412,124 @@ def phase_peaks(dev, skeleton, records):
         f'{ms:.4f} ms')
 
 
-def phase_grouping(dev, skeleton, records):
+CROWD_K, CROWD_CAPACITY = 96, 128
+
+
+def crowd_case(dev):
+    """A batch of dense crowds at capacity 128 and top-k 96, the JAX
+    package's overflow-test shape: packed limbs on `dev` and their config."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import DecoderConfig
+    x = torch.from_numpy(crowd_limbs(N_IMG, CROWD_K, seed=11)).to(dev)
+    return x, DecoderConfig(topk=CROWD_K, dist_max=40.0, use_scale=False,
+                            person_thre=0.05, max_poses=96,
+                            capacity=CROWD_CAPACITY)
+
+
+def grouping_barriers(src: str, n_limbs: int, settle: int) -> int:
+    """Barriers one image passes in a grouping source: `limb_step`'s and
+    `merge_pass`'s own `__syncthreads()` per limb (a step runs one merge
+    pass), `merge_pass`'s per settle pass, and `group_kernel`'s own."""
+    def own(name):
+        m = re.search(r'void\s+(?:__launch_bounds__\([^)]*\)\s+)?'
+                      + name + r'\(', src)
+        if not m:
+            raise ValueError(f'no definition of {name} in the source')
+        i = src.index('{', m.end())
+        depth, j = 0, i
+        while True:
+            depth += {'{': 1, '}': -1}.get(src[j], 0)
+            if depth == 0:
+                break
+            j += 1
+        return src[i:j].count('__syncthreads()')
+    merge = own('merge_pass')
+    return (n_limbs * (own('limb_step') + merge) + settle * merge
+            + own('group_kernel'))
+
+
+def compare_grouping(tag, x, skeleton, cfg, n_keypoints=J, order_free=False):
+    """Kernel and plain grouping of `x` on the card: counts identical,
+    scores within 1e-5, poses within 1e-4 place by place or, where
+    `order_free`, as sets (the adversarial inputs tie person scores but for
+    the order of the masked-mean sum, so tied poses may swap places). Logs
+    whether the outputs, and the pose sets, are bit-equal; fails the run
+    otherwise. Returns the largest error the check allowed."""
+    import torch
+    from offsetguided_tpu_torch.ops import grouping as plain
+    from offsetguided_tpu_torch.ops.cuda import grouping
+    p, s, c = grouping.group_skeletons(x, skeleton, cfg, n_keypoints,
+                                       cfg.capacity)
+    rp, rs, rc = plain.group_skeletons(x, skeleton, cfg, n_keypoints,
+                                       cfg.capacity)
+    torch.cuda.synchronize()
+    if not torch.equal(c, rc):
+        fail(f'grouping counts differ on {tag}: {c.tolist()} vs {rc.tolist()}')
+    p_err = float((p - rp).abs().max())
+    s_err = float((s - rs).abs().max())
+    in_place = p_err <= 1e-4
+    if not (s_err <= 1e-5 and (in_place or (
+            order_free and pose_sets_match(p, rp, c, 1e-4)))):
+        fail(f'grouping poses differ on {tag}: poses by {p_err}, scores by '
+             f'{s_err}')
+    same_sets = pose_sets_match(p, rp, c, 0.0)
+    exact = torch.equal(bits(p), bits(rp)) and torch.equal(bits(s), bits(rs))
+    log(f'{tag} {tuple(x.shape)} capacity {cfg.capacity}: counts '
+        f'{c.tolist()} identical; poses max_abs_err {p_err:.3g} '
+        f'{"in place" if in_place else "(as sets: within 1e-4)"}, scores '
+        f'{s_err:.3g}; bit-equal {exact}, pose sets bit-equal {same_sets}')
+    return max(s_err, p_err if in_place else 0.0 if same_sets else 1e-4)
+
+
+def person_scene_limbs(dev, skeleton):
+    """Packed limbs (8, 19, 32, 13) of 1-5 stick figures an image, decoded
+    on `dev` from `person_maps`, and the decoder config that decoded them."""
     import torch
     from offsetguided_tpu_torch.config.defaults import DecoderConfig
     from offsetguided_tpu_torch.decoder import PostProcessor
-    from offsetguided_tpu_torch.ops import grouping as plain
-    from offsetguided_tpu_torch.ops.cuda import grouping
-
     cfg = DecoderConfig(topk=TOPK, thre_hmp=0.04, dist_max=40.0)
     h = LONG_EDGE // STRIDE
     maps = person_maps(N_IMG, h, h, skeleton, seed=2)
     preds = {k: [torch.from_numpy(v).to(dev)] for k, v in maps.items()}
-    pp = PostProcessor(cfg=cfg)
-    packed = pp.decode_packed_limbs(preds).contiguous()
+    return PostProcessor(cfg=cfg).decode_packed_limbs(preds).contiguous(), cfg
+
+
+def phase_grouping(dev, skeleton, records):
+    """The grouping kernel against its plain version on person scenes, the
+    same with sentinels, a capacity-128 crowd and the JAX package's
+    adversarial and overflow inputs."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import DecoderConfig
+    from offsetguided_tpu_torch.ops.cuda import grouping
+
+    packed, cfg = person_scene_limbs(dev, skeleton)
     if tuple(packed.shape) != (N_IMG, L, TOPK, 13):
         fail(f'packed limbs shape {tuple(packed.shape)}')
     worst = 0.0
     for kind, x in (('persons', packed), ('sentinels', with_sentinels(packed))):
-        p, s, c = grouping.group_skeletons(x, skeleton, cfg)
-        rp, rs, rc = plain.group_skeletons(x, skeleton, cfg)
-        torch.cuda.synchronize()
-        if not torch.equal(c, rc):
-            fail(f'grouping counts differ on {kind}: {c.tolist()} vs '
-                 f'{rc.tolist()}')
-        err = max(float((p - rp).abs().max()), float((s - rs).abs().max()))
-        if not err <= 1e-4:
-            fail(f'grouping poses differ on {kind} by {err}')
-        worst = max(worst, err)
-        log(f'[grouping] {kind}: counts {c.tolist()} identical, '
-            f'max_abs_err={err:.3g}')
+        worst = max(worst, compare_grouping(f'[grouping] {kind}', x,
+                                            skeleton, cfg))
+    crowd, ccfg = crowd_case(dev)
+    worst = max(worst, compare_grouping('[grouping] crowd', crowd, skeleton,
+                                        ccfg))
+    for kind, (x, sk, j, kw) in adversarial_cases().items():
+        kw = dict(kw, max_poses=min(kw['max_poses'], kw['capacity']))
+        worst = max(worst, compare_grouping(
+            f'[grouping] adversarial {kind}', torch.from_numpy(x).to(dev), sk,
+            DecoderConfig(**kw), j, order_free=True))
     ms = cuda_time(lambda: grouping.group_skeletons(packed, skeleton, cfg), 20)
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'offsetguided_tpu_torch', 'csrc',
+                            'grouping.cu')).read()
+    barriers = grouping_barriers(src, L, cfg.settle_passes)
     records['grouping'] = dict(
         name='group_skeletons', route='cuda',
         source='offsetguided_tpu_torch/csrc/grouping.cu',
         replaces='offsetguided_tpu/ops/pallas/grouping_pallas.py:476',
-        max_abs_err=worst, ms_person_scenes=ms)
+        max_abs_err=worst, ms_person_scenes=ms, barriers_per_image=barriers)
     log(f'[grouping] ({N_IMG}, {L}, {TOPK}, 13) 1-5 person scenes: kernel '
-        f'{ms:.4f} ms')
+        f'{ms:.4f} ms; {barriers} barriers per image ({L} limbs, '
+        f'{cfg.settle_passes} settle passes, counted from the source)')
 
 
 def _wrappers():
@@ -482,29 +733,37 @@ def phase_main_path_kernels(skeleton, serve, images, records):
         f'plain; kernel {ms:.4f} ms ({split_text(split)}), plain '
         f'{plain_ms:.4f} ms, interpolate+max_pool+topk {lib_ms:.4f} ms')
 
-    p, s, cnt = grouping.group_skeletons(packed, skeleton, cfg)
-    rp, rs, rc = plain.group_skeletons(packed, skeleton, cfg)
-    if not torch.equal(cnt, rc):
-        fail(f'grouping counts differ on the main path: {cnt.tolist()} vs '
-             f'{rc.tolist()}')
-    err = max(float((p - rp).abs().max()), float((s - rs).abs().max()))
-    if not err <= 1e-4:
-        fail(f'grouping poses differ on the main path by {err}')
+    err = compare_grouping('[main-path kernels] grouping', packed, skeleton,
+                           cfg)
     r = records['grouping']
     r['max_abs_err'] = max(r['max_abs_err'], err)
     ms = cuda_time(lambda: grouping.group_skeletons(packed, skeleton, cfg), 20)
     plain_ms = cuda_time(
         lambda: plain.group_skeletons(packed, skeleton, cfg), 3, warmup=1)
+    split = launch_split(lambda: grouping.group_skeletons(packed, skeleton,
+                                                          cfg), parts=('group',))
     M, MP = cfg.capacity, cfg.max_poses
     n_bytes = packed.numel() * 4 + N_IMG * MP * (J * 6 + 1) * 4 + N_IMG * 4
     # per image and pass: dedup K^2, row matching 4MK, merge detection
     # M^2 J / 2 compares; 19 limb passes + settle merge passes
     passes = L + cfg.settle_passes
     n_ops = N_IMG * passes * (TOPK ** 2 + 4 * M * TOPK + M * M * J // 2)
-    r.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound=(n_bytes, n_ops))
-    log(f'[main-path kernels] grouping {tuple(packed.shape)}: counts '
-        f'{cnt.tolist()} identical, max_abs_err={err:.3g}; kernel '
-        f'{ms:.4f} ms, plain {plain_ms:.4f} ms')
+    r.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound=(n_bytes, n_ops),
+             **split)
+    log(f'[main-path kernels] grouping {tuple(packed.shape)}: kernel '
+        f'{ms:.4f} ms ({split_text(split)}), plain {plain_ms:.4f} ms')
+
+    crowd, ccfg = crowd_case(packed.device)
+    r['max_abs_err'] = max(r['max_abs_err'], compare_grouping(
+        '[main-path kernels] grouping crowd', crowd, skeleton, ccfg))
+    crowd_ms = cuda_time(lambda: grouping.group_skeletons(
+        crowd, skeleton, ccfg, capacity=ccfg.capacity), 20)
+    crowd_plain_ms = cuda_time(lambda: plain.group_skeletons(
+        crowd, skeleton, ccfg, J, ccfg.capacity), 3, warmup=1)
+    r.update(ms_crowd_128=crowd_ms, plain_ms_crowd_128=crowd_plain_ms)
+    log(f'[main-path kernels] grouping crowd {tuple(crowd.shape)} capacity '
+        f'{ccfg.capacity}: kernel {crowd_ms:.4f} ms, plain '
+        f'{crowd_plain_ms:.4f} ms')
 
 
 def phase_reference(dev, model_serve):

@@ -48,6 +48,8 @@ SIGNATURES = {
                            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr], c_int),
     },
     'grouping': {
+        'og_group_smem_bytes': ([c_int, c_int, c_int, c_int],
+                                ctypes.c_longlong),
         'og_group_skeletons': ([c_ptr, c_ptr, c_int, c_int, c_int, c_int,
                                 c_int, c_int, c_int, c_int, c_int, c_float,
                                 c_float, c_ptr, c_ptr, c_ptr, c_ptr], c_int),

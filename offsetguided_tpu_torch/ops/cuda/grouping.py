@@ -3,12 +3,13 @@ plain PyTorch version (`ops/grouping.py`).
 
 `group_skeletons(packed (N, L, K, 13), skeleton, cfg)` returns
 `(poses (N, max_poses, J, 6), scores (N, max_poses), counts (N,) int32)`. A
-CUDA tensor launches the kernel, one CTA per image; a CPU tensor takes the
-plain version.
+CUDA tensor launches the kernel, one CTA per image, or raises when the shapes
+need more shared memory than a block can have; a CPU tensor takes the plain
+version.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -16,8 +17,44 @@ from ...config.defaults import DecoderConfig
 from ..grouping import group_skeletons as group_skeletons_plain
 from . import _build
 
-MAX_CAPACITY = 64     # merge masks are 64-bit words
-MAX_K = 256           # one thread per candidate in the new-row phase
+MAX_SMEM = 232448     # Hopper's opt-in shared memory per block (227 KB)
+
+
+def smem_bytes(K: int, J: int, M: int, L: int) -> int:
+    """Shared memory of one CTA of the kernel: `smem_bytes` in
+    `csrc/grouping.cu`, term for term. The state (M, J, 6), the index copy
+    (M, J | 1), two candidate buffers (K, 13), the skeleton (L, 2), four
+    per-row arrays, two of a word per candidate, and a bit per candidate
+    for each of the 32 warps; four bytes each."""
+    return 4 * (M * J * 6 + M * (J | 1) + 2 * K * 13 + 2 * L + 4 * M + 2 * K
+                + 32 * ((K + 31) // 32))
+
+
+_skeletons: Dict[Tuple[torch.device, tuple], torch.Tensor] = {}
+
+
+def _skeleton_on(dev: torch.device, skeleton: Sequence) -> torch.Tensor:
+    """The (L, 2) int32 skeleton on `dev`, copied there once: a copy per
+    call from pageable host memory would wait for the stream's queued work."""
+    key = (dev, tuple(map(tuple, skeleton)))
+    if key not in _skeletons:
+        _skeletons[key] = torch.tensor(key[1], dtype=torch.int32, device=dev)
+    return _skeletons[key]
+
+
+def check_shapes(K: int, J: int, M: int, L: int, max_poses: int,
+                 sort_dim: int) -> None:
+    """Raise ValueError, naming the shapes, where the kernel cannot run:
+    max_poses over the capacity, or more shared memory than a block has."""
+    if not (M > 0 and K > 0 and max_poses <= M and sort_dim in range(6)):
+        raise ValueError(f'grouping kernel: capacity {M}, top-k {K}, '
+                         f'max_poses {max_poses}, sort_dim {sort_dim}: needs '
+                         f'0 < max_poses <= capacity, 0 <= sort_dim < 6')
+    need = smem_bytes(K, J, M, L)
+    if need > MAX_SMEM:
+        raise ValueError(f'grouping kernel: capacity {M}, top-k {K}, {J} '
+                         f'keypoints, {L} limbs need {need} bytes of shared '
+                         f'memory, over the {MAX_SMEM} a block can have')
 
 
 def group_skeletons(packed_limbs: torch.Tensor, skeleton: Sequence,
@@ -30,13 +67,10 @@ def group_skeletons(packed_limbs: torch.Tensor, skeleton: Sequence,
     if C != 13 or L != len(skeleton):
         raise ValueError(f'packed limbs {tuple(packed_limbs.shape)} do not '
                          f'match a {len(skeleton)}-limb skeleton')
-    if not (0 < capacity <= MAX_CAPACITY and 0 < K <= MAX_K
-            and cfg.max_poses <= capacity and cfg.sort_dim in range(6)):
-        raise ValueError('grouping kernel limits: capacity <= 64, K <= 256, '
-                         'max_poses <= capacity')
+    check_shapes(K, n_keypoints, capacity, L, cfg.max_poses, cfg.sort_dim)
     dev = packed_limbs.device
     x = packed_limbs.float().contiguous()
-    skel = torch.tensor(skeleton, dtype=torch.int32, device=dev).contiguous()
+    skel = _skeleton_on(dev, skeleton)
     poses = torch.empty((n, cfg.max_poses, n_keypoints, 6),
                         dtype=torch.float32, device=dev)
     scores = torch.empty((n, cfg.max_poses), dtype=torch.float32, device=dev)

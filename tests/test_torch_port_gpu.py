@@ -6,14 +6,21 @@ is present. Needs no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
-from offsetguided_tpu_torch.config.defaults import DecoderConfig
-from offsetguided_tpu_torch.ops import grouping as plain_grouping
-from offsetguided_tpu_torch.ops.cuda import grouping, nms_topk, peaks, topk
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import (adversarial_cases, crowd_limbs,  # noqa: E402
+                        pose_sets_match)
+from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON  # noqa: E402
+from offsetguided_tpu_torch.config.defaults import DecoderConfig  # noqa: E402
+from offsetguided_tpu_torch.ops import grouping as plain_grouping  # noqa: E402
+from offsetguided_tpu_torch.ops.cuda import grouping, nms_topk, peaks, topk  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 SK = tuple(COCO_PERSON_SKELETON)
@@ -101,6 +108,92 @@ def test_grouping_kernel_matches_plain(cuda, inputs):
     assert torch.equal(c, rc)
     torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
     torch.testing.assert_close(p, rp, atol=1e-4, rtol=0)
+
+
+# --- grouping: the JAX tests' adversarial and overflow inputs, capacity -- #
+
+def kernel_vs_plain(x, sk, j, cfg_kw):
+    """Kernel and plain grouping of one input on the card: counts equal,
+    scores within 1e-5, pose sets within 1e-4 (poses whose masked-mean
+    scores tie but for the order of the float sum may swap places, as in
+    tests/test_grouping_adversarial.py). The kernel takes max_poses up to
+    its capacity, as the JAX package's output has at most that many rows."""
+    cfg_kw = dict(cfg_kw, max_poses=min(cfg_kw['max_poses'],
+                                        cfg_kw['capacity']))
+    cfg = DecoderConfig(**cfg_kw)
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to('cuda')
+    before = grouping.group_skeletons.launches
+    p, s, c = grouping.group_skeletons(t, sk, cfg, n_keypoints=j,
+                                       capacity=cfg.capacity)
+    torch.cuda.synchronize()
+    assert grouping.group_skeletons.launches == before + 1
+    rp, rs, rc = plain_grouping.group_skeletons(t, sk, cfg, j, cfg.capacity)
+    assert torch.equal(c, rc)
+    torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
+    assert pose_sets_match(p, rp, c, atol=1e-4)
+    return c
+
+
+@pytest.mark.parametrize('name', [
+    'chain', 'chain_no_settle', 'equal_tie', 'extension_tie', 'fuzz',
+    'crowd_40_64', 'crowd_78_64', 'crowd_78_128'])
+def test_grouping_kernel_adversarial_inputs(cuda, name):
+    x, sk, j, cfg = adversarial_cases()[name]
+    c = kernel_vs_plain(x, sk, j, cfg)
+    if name.startswith('crowd'):
+        assert int(c[0]) == min(int(name.split('_')[1]), cfg['capacity'])
+
+
+@pytest.mark.parametrize('capacity,k', [(128, 96), (256, 48), (200, 40),
+                                        (64, 7)])
+def test_grouping_kernel_large_capacity(cuda, capacity, k):
+    """Crowds of colliding candidates over every limb at capacities past
+    the old 64-row limit, and top-k that is no multiple of 32."""
+    x = crowd_limbs(4, k, seed=capacity + k)
+    c = kernel_vs_plain(x, SK, 17, dict(
+        topk=k, dist_max=40.0, use_scale=False, person_thre=0.05,
+        max_poses=min(96, capacity), capacity=capacity))
+    assert int(c.min()) > 0
+
+
+@pytest.mark.parametrize('kind', ['persons_k40', 'all_nan', 'all_invalid'])
+def test_grouping_kernel_odd_inputs(cuda, kind):
+    rng = np.random.RandomState(12)
+    if kind == 'persons_k40':
+        x = person_limbs(rng, 3, 5, K=40, noise=6)
+    else:
+        x = np.full((2, len(SK), 32, 13), np.nan if kind == 'all_nan' else 0.0)
+    c = kernel_vs_plain(x, SK, 17, dict(
+        person_thre=0.06, dist_max=20.0, use_scale=True, max_poses=8,
+        capacity=64))
+    assert (int(c.min()) > 0) == (kind == 'persons_k40')
+
+
+def test_grouping_kernel_refuses_too_much_shared_memory(cuda):
+    """The first capacity whose state passes 227 KB raises ValueError
+    without a launch; one row fewer runs."""
+    M = next(m for m in range(64, 1024)
+             if grouping.smem_bytes(32, 17, m, len(SK)) > grouping.MAX_SMEM)
+    x = torch.from_numpy(crowd_limbs(1, 32, seed=3)).to('cuda')
+    cfg = DecoderConfig(max_poses=8)
+    before = grouping.group_skeletons.launches
+    with pytest.raises(ValueError, match='shared memory'):
+        grouping.group_skeletons(x, SK, cfg, capacity=M)
+    assert grouping.group_skeletons.launches == before
+    p, s, c = grouping.group_skeletons(x, SK, cfg, capacity=M - 1)
+    rp, rs, rc = plain_grouping.group_skeletons(x, SK, cfg, 17, M - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(c, rc)
+    torch.testing.assert_close(p, rp, atol=1e-4, rtol=0)
+
+
+def test_grouping_smem_formula_matches_the_kernel(cuda):
+    from offsetguided_tpu_torch.ops.cuda import _build
+    lib = _build.library('grouping')
+    for K, J, M, L in ((32, 17, 64, 19), (96, 17, 128, 19), (48, 17, 256, 19),
+                       (7, 5, 3, 2), (40, 7, 200, 5)):
+        assert lib.og_group_smem_bytes(K, J, M, L) == grouping.smem_bytes(
+            K, J, M, L)
 
 
 def bits(t):

@@ -1,5 +1,6 @@
-"""What of the selection kernels' tooling runs without a card: the phase
-cuts of `kernel_phases.py` still find their anchors in `csrc/`, the ptxas
+"""What of the kernels' tooling runs without a card: the phase cuts of
+`kernel_phases.py` still find their anchors in `csrc/`, the grouping
+phase stamps find their markers and barriers, the ptxas
 report lines of `chip_smoke.py` name each kernel, and the peaks kernel's
 dense tap table (weights over offsets -2..2, summed in offset order) gives
 `upsample2d`'s terms in `upsample2d`'s order, bit for bit.
@@ -48,6 +49,29 @@ def test_phase_cuts_find_their_anchors():
         assert f'constexpr int TILE = {tile};' in v['topk', f'tile_{tile}']
 
 
+def test_grouping_phase_markers_and_barriers():
+    """The grouping copy times every marked phase, and a source without
+    markers (an older tree's) gets one after each barrier, named by its
+    line; the barriers one image passes are counted from the source."""
+    src = (CSRC / 'grouping.cu').read_text()
+    timed, names = kernel_phases.phased_grouping(src)
+    assert names == ['merge_find', 'merge_copy', 'rows', 'new_rows', 'init',
+                     'dedup', 'final_score', 'final_write']
+    assert 'smem[]; og_phase_begin();' in timed
+    assert timed.count('og_phase_stamp(OG_PHASE_##name)') == 1
+    assert chip_smoke.grouping_barriers(src, 19, 2) == 19 * 4 + 2 * 2 + 3
+    unmarked = src.replace('OG_PHASE(', 'NO_PHASE(')
+    timed, names = kernel_phases.phased_grouping(unmarked)
+    lines = unmarked.split('\n')
+    assert names == [f'line{i + 1}' for i, ln in enumerate(lines)
+                     if '__syncthreads();' in ln]
+    assert timed.count('__syncthreads();\n') >= len(names)
+    v = kernel_phases.grouping_variants(CSRC, CSRC)
+    assert set(v) == {('grouping', 'full'), ('grouping', 'phased'),
+                      ('grouping', 'baseline'),
+                      ('grouping', 'baseline_phased')}
+
+
 def test_ptxas_lines_name_each_kernel():
     report = '\n'.join([
         "ptxas info    : Compiling entry function "
@@ -60,6 +84,10 @@ def test_ptxas_lines_name_each_kernel():
         '_ZN12_GLOBAL__N_117peaks_tile_kernelEPKfiiiNS_4TapsEPy',
         '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
         'ptxas info    : Used 45 registers, used 1 barriers, 44576 bytes smem',
+        'ptxas info    : Function properties for _ZN12_GLOBAL__N_112group_'
+        'kernelILi17EEEvPKfPKiNS_6ParamsEPfS5_Pi',
+        '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+        'ptxas info    : Used 56 registers, used 1 barriers',
     ])
     assert chip_smoke.ptxas_lines(report) == [
         'topk_tile_kernel<false>: 0 bytes stack frame, 0 bytes spill stores, '
@@ -67,7 +95,9 @@ def test_ptxas_lines_name_each_kernel():
         'smem',
         'peaks_tile_kernel: 0 bytes stack frame, 0 bytes spill stores, 0 '
         'bytes spill loads; Used 45 registers, used 1 barriers, 44576 bytes '
-        'smem']
+        'smem',
+        'group_kernel<17>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes '
+        'spill loads; Used 56 registers, used 1 barriers']
 
 
 def dense_upsample_axis0(x, dense):
