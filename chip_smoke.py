@@ -13,13 +13,16 @@ batch 8, bf16):
   through the micro-batcher (peaks + grouping kernels);
 - `cli.evaluate.main` over 16 seeded .npy images in the hard set's shapes,
   fixed height 640 with flip-test (non-square maps: block top-k +
-  grouping kernels) and stride-resolution decode (NMS + top-k + grouping);
+  grouping kernels) and stride-resolution decode (NMS + top-k, reading the
+  head's channel slice in place, + grouping);
 - `cli.simulate.main`, the GT oracle, on the 100-image hard annotations,
   upsampled (fused peaks) and stride-resolution decode, against the JAX
   package's recorded APs; and one fixed-height GT batch decoded through
   the kernels and through the plain versions on the card.
-Each path zeroes the kernels' launch counts just before it runs and reads
-them just after; each must have launched the kernels of its route. Prints
+The three selection kernels are also held against their plain versions
+at k = 1024. Each path zeroes the kernels' launch counts just before it
+runs and reads them just after; each must have launched the kernels of its
+route. Prints
 the card, the build, each phase, one `{"kernels": [...]}` line, and as its
 last line `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
 before the last line. Needs a CUDA device; never touches JAX.
@@ -984,8 +987,11 @@ def phase_topk(dev, serve, records):
 def phase_nms_topk(dev, serve, records):
     """The NMS + top-k kernel at (136, 160, 160) and (136, 160, 256) on
     random^4, quantized and one-NaN maps, and on the stride-resolution
-    route's own input (the full-width model's 640x640 heatmaps), where it
-    is timed with its plain version and max_pool2d NMS + torch.topk."""
+    route's own input (the full-width model's 640x640 heatmaps, the
+    (8, 160, 160, 17) channel slice of the head output, copied into
+    (136, 160, 160) maps as the route does): identical to its plain
+    version, timed with it, with max_pool2d NMS + torch.topk, and as the
+    route runs it (the copy + the kernel + the index math)."""
     import torch
     import torch.nn.functional as F
     from offsetguided_tpu_torch.ops.cuda import nms_topk
@@ -1013,11 +1019,14 @@ def phase_nms_topk(dev, serve, records):
     with torch.inference_mode():
         hmp = serve[3](normalize_images(images))['hmp'][-1]
     n, h, w, c = hmp.shape
-    maps = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous()
-    v, i = nms_topk.nms_topk(maps, TOPK)
+    maps = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w)   # as the route does
     pv, pi = nms_topk.nms_topk_plain(maps, TOPK)
+    v, i = nms_topk.nms_topk(maps, TOPK)
+    torch.cuda.synchronize()
     if not (torch.equal(i, pi) and torch.equal(bits(v), bits(pv))):
         fail('nms_topk kernel differs from plain on the model heatmaps')
+    log(f'[nms_topk] model heatmaps {tuple(hmp.shape)} stride {hmp.stride()}'
+        f': identical to plain')
 
     def library():
         x = maps[:, None]
@@ -1025,21 +1034,62 @@ def phase_nms_topk(dev, serve, records):
         nms = torch.where(hmax == x, x, torch.zeros_like(x))
         return torch.topk(nms.reshape(n * c, -1), TOPK)
 
+    def route():                                 # as ops/decoder.py runs it
+        x = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w)
+        vals, flat = nms_topk.nms_topk(x, TOPK)
+        inds = flat.reshape(n, c, TOPK)
+        return vals.reshape(n, c, TOPK), inds // w, inds % w
+
     ms = cuda_time(lambda: nms_topk.nms_topk(maps, TOPK), 20)
     plain_ms = cuda_time(lambda: nms_topk.nms_topk_plain(maps, TOPK), 5)
     lib_ms = cuda_time(library, 20)
-    split = launch_split(lambda: nms_topk.nms_topk(maps, TOPK))
-    n_bytes = maps.numel() * 4 + n * c * TOPK * 8
+    with torch.inference_mode():
+        route_ms = cuda_time(route, 20)
+        copy_ms = cuda_time(lambda: hmp.permute(0, 3, 1, 2).reshape(
+            n * c, h, w), 20)
+    split = launch_split(lambda: nms_topk.nms_topk(maps, TOPK),
+                         parts=('nms_topk',))
+    n_bytes = maps.numel() * 4 + n * c * TOPK * 12
     n_ops = 10 * maps.numel()   # 9-cell max + compare per cell
     records['nms_topk'] = dict(
         name='nms_topk', route='cuda',
         source='offsetguided_tpu_torch/csrc/nms_topk.cu',
         replaces='offsetguided_tpu/ops/pallas/nms_topk_pallas.py:20',
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        route_ms=route_ms, route_copy_ms=copy_ms,
         bound=(n_bytes, n_ops), **split)
-    log(f'[nms_topk] model heatmaps ({n * c}, {h}, {w}) k={TOPK}: identical; '
-        f'kernel {ms:.4f} ms ({split_text(split)}), plain {plain_ms:.4f} ms, '
+    log(f'[nms_topk] model heatmaps ({n * c}, {h}, {w}) k={TOPK}: kernel '
+        f'{ms:.4f} ms ({split_text(split)}), plain {plain_ms:.4f} ms, '
         f'max_pool2d NMS + torch.topk {lib_ms:.4f} ms')
+    log(f'[nms_topk] the route (the (N*C, h, w) copy + kernel + index math) '
+        f'{route_ms:.4f} ms, the copy alone {copy_ms:.4f} ms')
+
+
+def phase_large_k(dev):
+    """The three selection kernels at k = 1024 against their plain versions
+    (k past the 512 their wrappers once refused)."""
+    import torch
+    from offsetguided_tpu_torch.ops.cuda import nms_topk, peaks, topk
+    rng = np.random.RandomState(13)
+    k = 1024
+    x = torch.from_numpy((np.round(rng.rand(J, 20000) * 64) / 64)
+                         .astype(np.float32)).to(dev)
+    v, i = topk.topk(x, k)
+    pv, pi = topk.topk_plain(x, k)
+    ok = torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+    maps = torch.from_numpy(rng.rand(J, 40, 40).astype(np.float32) ** 4).to(dev)
+    v, ys, xs = peaks.peaks_topk(maps, k)
+    pv, pys, pxs = peaks.peaks_topk_plain(maps, k)
+    ok = ok and torch.equal(ys, pys) and torch.equal(xs, pxs) and \
+        torch.equal(bits(v), bits(pv))
+    v, i = nms_topk.nms_topk(maps, k)
+    pv, pi = nms_topk.nms_topk_plain(maps, k)
+    torch.cuda.synchronize()
+    ok = ok and torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+    if not ok:
+        fail(f'a selection kernel differs from its plain version at k={k}')
+    log(f'[large-k] k={k}: topk ({J}, 20000), peaks ({J}, 40, 40) and '
+        f'nms_topk ({J}, 40, 40) identical to their plain versions')
 
 
 def phase_evaluate(dev, root):
@@ -1202,6 +1252,7 @@ def main() -> int:
     launches['batcher'] = phase_batcher(dev, serve)
     phase_topk(dev, serve, records)
     phase_nms_topk(dev, serve, records)
+    phase_large_k(dev)
     del serve, images
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:

@@ -28,6 +28,10 @@
 // pass stores the four phases as one float4; and the selection is the
 // linear-time radix select of topk_select.cuh.
 //
+// k is bounded by shared memory only: a tile selects min(k, TB * TB) keys
+// and pads its list with KEY_NONE, and the merge keeps its scratch and its
+// k winners in dynamic shared memory (`og_peaks_smem_bytes`).
+//
 // Bit parity with the plain PyTorch version (ops/resize.py::upsample2d):
 // the same term order (H pass then W pass, taps in offset order, zero taps
 // skipped) with __fmul_rn/__fadd_rn, so nvcc cannot contract a multiply and
@@ -54,6 +58,13 @@ constexpr int SRC = QB + 2 * REACH; // source px a tile reads, with the reach
 constexpr int UPX = FACTOR * QB;    // `up` row pitch: the QB px' phases
 constexpr int UX = 3;               // `up` column of full-res column X0 - 1
 constexpr int THREADS = og::SELECT_THREADS;
+constexpr int MERGE_STATIC = og::SELECT_SHARED_BYTES;
+
+// Dynamic shared bytes of the merge at k: its selection scratch and its k
+// winners.
+size_t merge_dynamic(int k) {
+  return sizeof(unsigned long long) * (og::win_keys(k) + k);
+}
 
 // Each phase's weights over the offsets -REACH..REACH, 0 where it has no
 // tap; its taps in ascending offset order are the table's tap order.
@@ -185,19 +196,23 @@ peaks_tile_kernel(const float* __restrict__ maps, int h, int w, int k,
 
   // top-k of the tile's keys; array order lb = lby * TB + lbx is index
   // order, since the key's index (by * WB + bx) * 4 + code grows with lb
+  // (k past the tile's TB * TB keys: all of them, then KEY_NONE padding)
   const int tiles = gridDim.x * gridDim.y;
-  og::block_select(keys_s, TB * TB / (THREADS / 32), k, wcand,
-                   cand + ((size_t)b * tiles + (size_t)ty * gridDim.x + tx) * k);
+  const int kt = k < TB * TB ? k : TB * TB;
+  unsigned long long* dst =
+      cand + ((size_t)b * tiles + (size_t)ty * gridDim.x + tx) * k;
+  og::block_select(keys_s, TB * TB / (THREADS / 32), kt, wcand, dst);
+  for (int i = kt + threadIdx.x; i < k; i += THREADS) dst[i] = KEY_NONE;
 }
 
 // One CTA per map: the k smallest of its tiles' candidate keys.
-// Dynamic shared memory: (THREADS/32 + 1) * k keys.
+// Dynamic shared memory: merge_dynamic(k).
 __global__ void __launch_bounds__(THREADS)
 peaks_merge_kernel(const unsigned long long* __restrict__ cand, int n_cand,
                    int k, int WB, float* __restrict__ vals,
                    int* __restrict__ ys, int* __restrict__ xs) {
   extern __shared__ unsigned long long wc[];
-  unsigned long long* best = wc + (THREADS / 32) * k;
+  unsigned long long* best = wc + og::win_keys(k);
   const int b = blockIdx.x;
   og::merge_select(cand + (size_t)b * n_cand, n_cand, k, wc, best);
   for (int r = threadIdx.x; r < k; r += blockDim.x) {
@@ -220,8 +235,15 @@ int og_peaks_tiles(int h, int w) {
   return ((HB + TB - 1) / TB) * ((WB + TB - 1) / TB);
 }
 
+// The merge launch's shared bytes at k (static as the runtime reports it,
+// plus dynamic), the only launch whose bytes grow with k;
+// ops/cuda/peaks.py::smem_bytes computes the same.
+long long og_peaks_smem_bytes(int k) {
+  return og::kernel_smem_bytes(peaks_merge_kernel, merge_dynamic(k));
+}
+
 // maps (B, h, w) f32 -> vals (B, k) f32, ys/xs (B, k) i32 at full resolution.
-// k <= 512 (the merge kernel keeps 9 lists of k keys in shared memory).
+// Requires 0 < k <= 4 h w blocks and og_peaks_smem_bytes(k) <= 227 KB.
 // tap_n (4), tap_off (4x5), tap_w (4x5) are HOST arrays: the phase table,
 // each phase's taps nonzero, in ascending offset order within [-2, 2]
 // (cudaErrorInvalidValue otherwise).
@@ -247,7 +269,9 @@ int og_peaks_topk(const float* maps, int B, int h, int w, int k,
   peaks_tile_kernel<<<grid, THREADS, 0, s>>>(maps, h, w, k, taps, cand);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t merge_smem = sizeof(unsigned long long) * (THREADS / 32 + 1) * k;
+  const size_t merge_smem = merge_dynamic(k);
+  err = og::allow_dynamic_smem(peaks_merge_kernel, MERGE_STATIC, merge_smem);
+  if (err != cudaSuccess) return (int)err;
   peaks_merge_kernel<<<B, THREADS, merge_smem, s>>>(
       cand, grid.x * grid.y * k, k, WB, vals, ys, xs);
   return (int)cudaGetLastError();

@@ -29,6 +29,9 @@
 // than 2048 and 8192 (PERF.md).
 // The output value is read back from the input at the chosen index, so
 // -0.0 and NaN payloads come out bit-equal to the plain version.
+// k is bounded by shared memory only: a tile selects min(k, TILE) keys and
+// pads its list with KEY_NONE, and both launches keep their selection
+// scratch in dynamic shared memory (`og_topk_smem_bytes`).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +42,19 @@ namespace {
 constexpr int THREADS = og::SELECT_THREADS;
 constexpr int TILE = 4096;                  // elements per CTA of launch 1
 constexpr int PER = TILE / THREADS;         // keys a thread
+// static shared bytes of each launch: the tile's high words, and each
+// launch's og::SelectShared
+constexpr int TILE_STATIC = TILE * 4 + og::SELECT_SHARED_BYTES;
+constexpr int MERGE_STATIC = og::SELECT_SHARED_BYTES;
+
+// Dynamic shared bytes of each launch at k: the tile's selection scratch
+// (it selects min(k, TILE) keys), the merge's scratch and its k winners.
+size_t tile_dynamic(int k) {
+  return sizeof(unsigned long long) * og::win_keys(k < TILE ? k : TILE);
+}
+size_t merge_dynamic(int k) {
+  return sizeof(unsigned long long) * (og::win_keys(k) + k);
+}
 
 // Slot 4g + j of thread t is element (g * THREADS + t) * 4 + j of the
 // tile: one float4 load where VEC (n % 4 == 0, 16-byte aligned rows), else
@@ -48,7 +64,7 @@ __global__ void __launch_bounds__(THREADS)
 topk_tile_kernel(const float* __restrict__ x, int n, int k,
                  unsigned long long* __restrict__ cand) {
   __shared__ uint4 hs[TILE / 4];
-  __shared__ unsigned long long win[og::MAX_K];
+  extern __shared__ unsigned long long win[];   // tile_dynamic(k)
   const int tile = blockIdx.x, row = blockIdx.y;
   const float* xr = x + (size_t)row * n;
   const int t0 = tile * TILE;
@@ -71,18 +87,20 @@ topk_tile_kernel(const float* __restrict__ x, int n, int k,
   }
   const og::RowTile<PER> keys{reinterpret_cast<const uint32_t*>(hs),
                               (uint32_t)t0};
-  og::select_smallest(keys, k, win,
-                      cand + ((size_t)row * gridDim.x + tile) * k);
+  unsigned long long* dst = cand + ((size_t)row * gridDim.x + tile) * k;
+  const int kt = k < TILE ? k : TILE;
+  og::select_smallest(keys, kt, win, dst);
+  for (int i = kt + threadIdx.x; i < k; i += THREADS) dst[i] = og::KEY_NONE;
 }
 
 // One CTA per row: the k smallest of its tiles' keys. Dynamic shared
-// memory: (THREADS/32 + 1) * k keys.
+// memory: merge_dynamic(k).
 __global__ void __launch_bounds__(THREADS)
 topk_merge_kernel(const float* __restrict__ x, int n,
                   const unsigned long long* __restrict__ cand, int n_cand,
                   int k, float* __restrict__ vals, int* __restrict__ inds) {
   extern __shared__ unsigned long long wc[];
-  unsigned long long* best = wc + (THREADS / 32) * k;
+  unsigned long long* best = wc + og::win_keys(k);
   const int row = blockIdx.x;
   og::merge_select(cand + (size_t)row * n_cand, n_cand, k, wc, best);
   for (int r = threadIdx.x; r < k; r += blockDim.x) {
@@ -99,23 +117,43 @@ extern "C" {
 // Number of tiles per row; the caller sizes `cand` as M * tiles * k keys.
 int og_topk_tiles(int n) { return (n + TILE - 1) / TILE; }
 
+// The larger of the two launches' shared bytes at k (static as the runtime
+// reports it, plus dynamic); ops/cuda/topk.py::smem_bytes computes the same.
+long long og_topk_smem_bytes(int k) {
+  const long long tile =
+      og::kernel_smem_bytes(topk_tile_kernel<true>, tile_dynamic(k));
+  const long long merge =
+      og::kernel_smem_bytes(topk_merge_kernel, merge_dynamic(k));
+  if (tile < 0 || merge < 0) return -1;
+  return tile > merge ? tile : merge;
+}
+
 // x (M, n) f32 on the device -> vals (M, k) f32, inds (M, k) i32.
-// Requires 0 < k <= min(n, 512) (the merge keeps 9 lists of k keys in
-// shared memory).
+// Requires 0 < k <= n and og_topk_smem_bytes(k) <= 227 KB.
 int og_topk(const float* x, int M, int n, int k, unsigned long long* cand,
             float* vals, int* inds, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = og_topk_tiles(n);
   const dim3 grid(tiles, M);
-  if (n % 4 == 0 && ((uintptr_t)x & 15u) == 0)
-    topk_tile_kernel<true><<<grid, THREADS, 0, s>>>(x, n, k, cand);
-  else
-    topk_tile_kernel<false><<<grid, THREADS, 0, s>>>(x, n, k, cand);
-  cudaError_t err = cudaGetLastError();
+  const size_t tile_smem = tile_dynamic(k), merge_smem = merge_dynamic(k);
+  cudaError_t err;
+  if (n % 4 == 0 && ((uintptr_t)x & 15u) == 0) {
+    err = og::allow_dynamic_smem(topk_tile_kernel<true>, TILE_STATIC,
+                                 tile_smem);
+    if (err != cudaSuccess) return (int)err;
+    topk_tile_kernel<true><<<grid, THREADS, tile_smem, s>>>(x, n, k, cand);
+  } else {
+    err = og::allow_dynamic_smem(topk_tile_kernel<false>, TILE_STATIC,
+                                 tile_smem);
+    if (err != cudaSuccess) return (int)err;
+    topk_tile_kernel<false><<<grid, THREADS, tile_smem, s>>>(x, n, k, cand);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(unsigned long long) * (THREADS / 32 + 1) * k;
-  topk_merge_kernel<<<M, THREADS, smem, s>>>(x, n, cand, tiles * k, k, vals,
-                                             inds);
+  err = og::allow_dynamic_smem(topk_merge_kernel, MERGE_STATIC, merge_smem);
+  if (err != cudaSuccess) return (int)err;
+  topk_merge_kernel<<<M, THREADS, merge_smem, s>>>(x, n, cand, tiles * k, k,
+                                                   vals, inds);
   return (int)cudaGetLastError();
 }
 

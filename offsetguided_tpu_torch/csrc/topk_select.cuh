@@ -33,10 +33,13 @@
 //      concatenated tile lists interleave indices, by up to four more digit
 //      passes over the low word;
 //   3. the k winners are compacted, one shared atomic each;
-//   4. and sorted: one warp's bitonic network for k <= 32, a shared-memory
-//      bitonic sort over every thread up to k = 512.
+//   4. and sorted: one warp's bitonic network for k <= 32, else a
+//      shared-memory bitonic sort over every thread, of the next power of
+//      two >= k keys (`win_keys(k)`).
 // Work per tile: O(n) per pass for at most 8 passes, plus O(k log^2 k) for
-// the sort. No k-round rescan is left.
+// the sort. No k-round rescan is left. k has no fixed limit: each caller
+// keeps its `win_keys(k)` keys of scratch in dynamic shared memory, so k is
+// bounded by the 227 KB a block can have (the wrappers compute the bytes).
 #pragma once
 
 #include <assert.h>
@@ -48,8 +51,19 @@ namespace og {
 constexpr unsigned long long KEY_NONE = ~0ull;
 constexpr int SELECT_THREADS = 256;   // every selecting block: one bin a thread
 constexpr int SELECT_WARPS = SELECT_THREADS / 32;
-constexpr int MAX_K = 512;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Keys of scratch the selection of k keys needs (`win` of select_smallest):
+// k for the warp sort (k <= 32), else the next power of two >= max(k, 64).
+__host__ __device__ constexpr int win_keys(int k) {
+  int p = 64;
+  while (p < k) p <<= 1;
+  return k <= 32 ? k : p;
+}
+
+// Bytes of og::SelectShared, the static shared memory of every selecting
+// block (the wrappers add it to each kernel's dynamic bytes).
+constexpr int SELECT_SHARED_BYTES = 1056;
 
 __device__ __forceinline__ unsigned long long make_key(float v, uint32_t idx) {
   uint32_t u = __float_as_uint(v);
@@ -81,6 +95,9 @@ struct __align__(16) SelectShared {
   unsigned wmin, wmax;             // its candidates' words (settle_if_equal)
   unsigned cursor;                 // compaction
 };
+
+static_assert(sizeof(SelectShared) == SELECT_SHARED_BYTES,
+              "SELECT_SHARED_BYTES, and the wrappers' copies of it");
 
 __device__ __forceinline__ SelectShared& select_shared() {
   __shared__ SelectShared s;
@@ -264,7 +281,8 @@ __device__ inline void sort_into(unsigned long long* win, int k,
 }
 
 // The k smallest keys of a block's slots, ascending, into dst[0..k), with
-// `win` (>= the next power of two >= k keys) as scratch. `Src` gives each
+// `win` (win_keys(k) keys) as scratch; the slots hold at least k valid
+// keys. dst may alias the slots' keys (they are read before dst is written). `Src` gives each
 // thread's slots: for_slots(f), valid(s), hi(s), key(s), and
 // BY_POSITION: if true, slot s = g * V + j of thread t lies at position
 // (g * SELECT_THREADS + t) * V + j of the tile, and position order is index
@@ -420,6 +438,25 @@ struct RowTile {
   }
 };
 
+// n keys in shared memory in any order, read again on every pass.
+struct SharedKeys {
+  static constexpr bool BY_POSITION = false;
+  const unsigned long long* keys;
+  int n, slots;
+  __device__ SharedKeys(const unsigned long long* c, int n_)
+      : keys(c), n(n_), slots((n_ + SELECT_THREADS - 1) / SELECT_THREADS) {}
+  template <class F> __device__ __forceinline__ void for_slots(F f) const {
+    for (int s = 0; s < slots; ++s) f(s);
+  }
+  __device__ __forceinline__ bool valid(int s) const {
+    return s * SELECT_THREADS + (int)threadIdx.x < n;
+  }
+  __device__ __forceinline__ unsigned long long key(int s) const {
+    return valid(s) ? keys[s * SELECT_THREADS + threadIdx.x] : KEY_NONE;
+  }
+  __device__ __forceinline__ uint32_t hi(int s) const { return (uint32_t)(key(s) >> 32); }
+};
+
 // n keys in device memory in any order (concatenated sorted tile lists),
 // read again on every pass.
 struct GlobalKeys {
@@ -443,9 +480,9 @@ struct GlobalKeys {
 // The k smallest of a block's `n_per_warp * (blockDim.x / 32)` <= 1024 keys
 // in shared memory `keys`, ascending, into `dst` (shared or global). The
 // caller's array order must be index order: a key's low word grows with its
-// position (asserted between neighbours). `wcand` holds
-// (blockDim.x / 32) * min(k, n_per_warp) keys of scratch. blockDim.x must be
-// SELECT_THREADS. Ends with a barrier.
+// position (asserted between neighbours). k <= n; `wcand` holds
+// win_keys(k) keys of scratch. blockDim.x must be SELECT_THREADS. Ends with
+// a barrier.
 __device__ inline void block_select(const unsigned long long* keys,
                                     int n_per_warp, int k,
                                     unsigned long long* wcand,
@@ -457,13 +494,33 @@ __device__ inline void block_select(const unsigned long long* keys,
 }
 
 // One block's k smallest of `n` >= k keys in global memory `cand` (the
-// per-tile lists of one map), into shared `best`, with `wc`
-// ((blockDim.x / 32) * k keys) as scratch. Ends with a barrier.
+// per-tile lists of one map), into shared `best`, with `wc` (win_keys(k)
+// keys) as scratch. Ends with a barrier.
 __device__ inline void merge_select(const unsigned long long* cand, int n,
                                     int k, unsigned long long* wc,
                                     unsigned long long* best) {
   if (blockDim.x != SELECT_THREADS) __trap();
   select_smallest(GlobalKeys(cand, n), k, wc, best);
+}
+
+// Host side: a launch whose static plus dynamic shared memory passes 48 KB
+// must first raise the kernel's dynamic limit (up to 227 KB a block).
+template <class Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int static_bytes,
+                                      size_t dynamic_bytes) {
+  if (static_bytes + dynamic_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)dynamic_bytes);
+}
+
+// Host side: a kernel's static shared bytes as the runtime reports them
+// plus `dynamic_bytes`, or -1 where the runtime cannot say.
+template <class Kernel>
+inline long long kernel_smem_bytes(Kernel kernel, size_t dynamic_bytes) {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess) return -1;
+  return (long long)a.sharedSizeBytes + (long long)dynamic_bytes;
 }
 
 }  // namespace og

@@ -40,10 +40,12 @@ build_logs: Dict[str, str] = {}
 c_ptr = ctypes.c_void_p
 c_int = ctypes.c_int
 c_float = ctypes.c_float
+c_longlong = ctypes.c_longlong
 
 SIGNATURES = {
     'peaks': {
         'og_peaks_tiles': ([c_int, c_int], c_int),
+        'og_peaks_smem_bytes': ([c_int], c_longlong),
         'og_peaks_topk': ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr,
                            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr], c_int),
     },
@@ -56,15 +58,32 @@ SIGNATURES = {
     },
     'topk': {
         'og_topk_tiles': ([c_int], c_int),
+        'og_topk_smem_bytes': ([c_int], c_longlong),
         'og_topk': ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr, c_ptr],
                     c_int),
     },
     'nms_topk': {
-        'og_nms_topk_tiles': ([c_int, c_int], c_int),
+        'og_nms_topk_smem_bytes': ([c_int, c_int, c_int], c_longlong),
         'og_nms_topk': ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr,
-                         c_ptr, c_ptr], c_int),
+                         c_ptr], c_int),
     },
 }
+# csrc/topk_select.cuh's shared-memory arithmetic, for the selection
+# kernels' wrappers: the most a block can have (Hopper's 227 KB opt-in),
+# og::SelectShared's bytes, and og::win_keys.
+MAX_SMEM = 232448
+SELECT_SHARED_BYTES = 1056
+
+
+def win_keys(k: int) -> int:
+    """Keys of scratch the selection of k keys needs: k for the warp sort
+    (k <= 32), else the next power of two >= max(k, 64)."""
+    p = 64
+    while p < k:
+        p <<= 1
+    return k if k <= 32 else p
+
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([A-Za-z0-9_]+\.cuh)"', re.M)
 
 

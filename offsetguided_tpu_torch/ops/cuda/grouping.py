@@ -16,8 +16,7 @@ import torch
 from ...config.defaults import DecoderConfig
 from ..grouping import group_skeletons as group_skeletons_plain
 from . import _build
-
-MAX_SMEM = 232448     # Hopper's opt-in shared memory per block (227 KB)
+from ._build import MAX_SMEM
 
 
 def smem_bytes(K: int, J: int, M: int, L: int) -> int:

@@ -4,8 +4,10 @@
 `peaks_topk(maps (B, h, w), k)` returns `(vals, ys, xs)`, each (B, k), the
 top-k 2x2 blocks of the NMS'd x`FACTOR` upsampled maps in full-resolution
 pixel coordinates: value descending, ties to the lowest flat block index,
-first-wins position inside the block. A CUDA tensor launches the kernel; a
-CPU tensor takes `peaks_topk_plain`.
+first-wins position inside the block. A CUDA tensor launches the kernel,
+or raises where k needs more shared memory than a block can have (k is
+bounded by that, not by a fixed limit); a CPU tensor takes
+`peaks_topk_plain`.
 """
 from __future__ import annotations
 
@@ -15,10 +17,18 @@ import torch
 from ..decoder import hmp_nms, topk_channel_blockreduce
 from ..resize import phase_taps, upsample2d
 from . import _build
+from ._build import MAX_SMEM, SELECT_SHARED_BYTES, win_keys
 
 FACTOR = 4       # the kernel's compiled upsampling factor
 MAX_TAPS = 5
-MAX_K = 512      # the merge kernel's shared-memory lists
+
+
+def smem_bytes(k: int) -> int:
+    """Shared memory of the merge launch at k, the only launch whose bytes
+    grow with k, as `og_peaks_smem_bytes` in `csrc/peaks.cu` counts it: its
+    selection scratch and its k winners (8 bytes a key) and
+    og::SelectShared."""
+    return SELECT_SHARED_BYTES + 8 * (win_keys(k) + k)
 
 
 def peaks_topk_plain(maps: torch.Tensor, k: int, method: str = 'bicubic'):
@@ -48,8 +58,11 @@ def peaks_topk(maps: torch.Tensor, k: int, method: str = 'bicubic'):
     if maps.dim() != 3:
         raise ValueError(f'maps must be (B, h, w), got {tuple(maps.shape)}')
     b, h, w = maps.shape
-    if not 0 < k <= min(MAX_K, (2 * h) * (2 * w)):
-        raise ValueError(f'k={k} outside 1..min({MAX_K}, {4 * h * w} blocks)')
+    if not 0 < k <= (2 * h) * (2 * w):
+        raise ValueError(f'k={k} outside 1..{4 * h * w} blocks')
+    if smem_bytes(k) > MAX_SMEM:
+        raise ValueError(f'peaks kernel: k={k} needs {smem_bytes(k)} bytes of '
+                         f'shared memory, over the {MAX_SMEM} a block can have')
     maps = maps.float().contiguous()
     lib = _build.library('peaks')
     tiles = lib.og_peaks_tiles(h, w)

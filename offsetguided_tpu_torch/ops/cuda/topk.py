@@ -4,7 +4,8 @@ plain PyTorch version.
 `topk(x (M, n), k)` returns `(vals (M, k) float32, inds (M, k) int64)`:
 values descending, ties to the lowest index, distinct indices (the order of
 `lax.top_k`, except that -0.0 ties with +0.0). A CUDA tensor launches the
-kernel; a CPU tensor takes `topk_plain`.
+kernel, or raises where k needs more shared memory than a block can have (k
+is bounded by that, not by a fixed limit); a CPU tensor takes `topk_plain`.
 """
 from __future__ import annotations
 
@@ -12,8 +13,20 @@ import torch
 
 from ..decoder import stable_topk
 from . import _build
+from ._build import MAX_SMEM, SELECT_SHARED_BYTES, win_keys
 
-MAX_K = 512      # the merge kernel's shared-memory lists
+TILE = 4096      # elements a tile CTA selects over, as in csrc/topk.cu
+
+
+def smem_bytes(k: int) -> int:
+    """Shared memory of the larger of the kernel's two launches at k, as
+    `og_topk_smem_bytes` in `csrc/topk.cu` counts it: the tile's high words
+    (4 bytes an element) and its selection scratch for min(k, TILE) keys;
+    the merge's scratch and its k winners (8 bytes a key); each with
+    og::SelectShared."""
+    tile = TILE * 4 + 8 * win_keys(min(k, TILE))
+    merge = 8 * (win_keys(k) + k)
+    return SELECT_SHARED_BYTES + max(tile, merge)
 
 
 def topk_plain(x: torch.Tensor, k: int):
@@ -27,8 +40,11 @@ def topk(x: torch.Tensor, k: int):
     if x.dim() != 2:
         raise ValueError(f'x must be (M, n), got {tuple(x.shape)}')
     m, n = x.shape
-    if not 0 < k <= min(MAX_K, n):
-        raise ValueError(f'k={k} outside 1..min({MAX_K}, n={n})')
+    if not 0 < k <= n:
+        raise ValueError(f'k={k} outside 1..n={n}')
+    if smem_bytes(k) > MAX_SMEM:
+        raise ValueError(f'topk kernel: k={k} needs {smem_bytes(k)} bytes of '
+                         f'shared memory, over the {MAX_SMEM} a block can have')
     if not 0 < m <= 65535 or n >= 2 ** 31:
         raise ValueError(f'topk kernel grid limits: 0 < M <= 65535, n < 2^31; '
                          f'got {tuple(x.shape)}')

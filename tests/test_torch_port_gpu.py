@@ -367,3 +367,176 @@ def test_nms_topk_kernel_selection_edges(cuda, k):
     pv, pi = nms_topk.nms_topk_plain(t, k)
     torch.cuda.synchronize()
     assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+
+
+# --- k past 512 in the three selection kernels, and their shared memory -- #
+
+def assert_nms_topk_matches_plain(t, k):
+    before = nms_topk.nms_topk.launches
+    v, i = nms_topk.nms_topk(t, k)
+    torch.cuda.synchronize()
+    assert nms_topk.nms_topk.launches == before + 1
+    pv, pi = nms_topk.nms_topk_plain(t, k)
+    assert i.dtype == torch.int64 and v.shape == (pv.shape[0], k)
+    assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+
+
+@pytest.mark.parametrize('kernel', ['topk', 'peaks', 'nms_topk'])
+@pytest.mark.parametrize('k', [513, 1024, 'all'])
+def test_selection_kernels_past_k_512(cuda, kernel, k):
+    """Each kernel at k = 513 and 1024, and at k = every cell (or block)
+    of a small map, equals its plain version."""
+    rng = np.random.RandomState(20)
+    if kernel == 'topk':
+        x = (np.round(rng.rand(3, 6000 if k != 'all' else 700) * 64)
+             / 64).astype(np.float32)
+        k = x.shape[1] if k == 'all' else k
+        t = torch.from_numpy(x).to(cuda)
+        v, i = topk.topk(t, k)
+        pv, pi = topk.topk_plain(t, k)
+        torch.cuda.synchronize()
+        assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+    elif kernel == 'peaks':
+        h, w = (24, 24) if k != 'all' else (6, 5)
+        k = 4 * h * w if k == 'all' else k
+        maps = torch.from_numpy(rng.rand(3, h, w).astype(np.float32) ** 4)
+        v, ys, xs = peaks.peaks_topk(maps.to(cuda), k)
+        pv, pys, pxs = peaks.peaks_topk_plain(maps.to(cuda), k)
+        torch.cuda.synchronize()
+        assert torch.equal(ys, pys) and torch.equal(xs, pxs)
+        assert torch.equal(bits(v), bits(pv))
+    else:
+        h, w = (40, 40) if k != 'all' else (5, 7)
+        k = h * w if k == 'all' else k
+        x = (np.round(rng.rand(3, h, w) * 4) / 4).astype(np.float32)
+        assert_nms_topk_matches_plain(torch.from_numpy(x).to(cuda), k)
+
+
+def test_selection_smem_formulas_match_the_kernels(cuda):
+    """Each wrapper's shared-memory formula equals what its C code counts
+    from the kernels' own static sizes."""
+    from offsetguided_tpu_torch.ops.cuda import _build
+    for k in (1, 32, 33, 64, 512, 513, 1024, 3000, 5000):
+        assert _build.library('topk').og_topk_smem_bytes(k) == \
+            topk.smem_bytes(k)
+        assert _build.library('peaks').og_peaks_smem_bytes(k) == \
+            peaks.smem_bytes(k)
+        for h, w in ((160, 160), (160, 256), (5, 7), (300, 700), (1, 1)):
+            assert _build.library('nms_topk').og_nms_topk_smem_bytes(
+                h, w, k) == nms_topk.smem_bytes(h, w, k)
+
+
+@pytest.mark.parametrize('kernel', ['topk', 'peaks', 'nms_topk'])
+def test_selection_kernels_refuse_past_227kb(cuda, kernel):
+    """The first k whose shared memory passes 227 KB raises ValueError
+    without a launch; one less runs and equals the plain version."""
+    rng = np.random.RandomState(21)
+    if kernel == 'topk':
+        fn, plain, bytes_at = topk.topk, topk.topk_plain, topk.smem_bytes
+        x = rng.rand(2, 20000)
+    elif kernel == 'peaks':
+        fn, plain, bytes_at = (peaks.peaks_topk, peaks.peaks_topk_plain,
+                               peaks.smem_bytes)
+        x = rng.rand(2, 64, 64)
+    else:
+        fn, plain = nms_topk.nms_topk, nms_topk.nms_topk_plain
+        x = rng.rand(2, 64, 64)
+        bytes_at = lambda k: nms_topk.smem_bytes(64, 64, k)  # noqa: E731
+    t = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    k = next(k for k in range(1, 1 << 16) if bytes_at(k) > 232448)
+    before = fn.launches
+    with pytest.raises(ValueError, match='shared memory'):
+        fn(t, k)
+    assert fn.launches == before
+    got, want = fn(t, k - 1), plain(t, k - 1)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+# --- the one-launch NMS + top-k on the inputs its design must not miss --- #
+
+def nms_case(kind, rng):
+    """(maps float32 numpy, k) for one input of the band design: value
+    classes, band boundaries, tiles and the slow exact path."""
+    if kind == 'few_positive':       # zero fill starts in a later band
+        x = np.zeros((3, 64, 64), np.float32)
+        x[:, 2, 5], x[:, 3, 40], x[1, 50, 7] = 0.5, 0.25, 0.75
+        return x, 40
+    if kind == 'all_zero':
+        return np.zeros((3, 40, 40), np.float32), 100
+    if kind == 'all_negative':       # non-survivors are 0; few negatives
+        return -rng.rand(3, 40, 40).astype(np.float32) - 0.1, 600
+    if kind == 'constant_negative':  # interior cells all survive at -1
+        x = np.full((2, 40, 40), -1.0, np.float32)
+        x[1, 10:20, 10:20] = -0.5
+        return x, 1000
+    if kind == 'neg_zero':           # -0.0 cells, some surviving as -0.0
+        x = np.where(rng.rand(3, 48, 48) < 0.02, rng.rand(3, 48, 48),
+                     -0.0).astype(np.float32)
+        x[:, 20:30, 20:30] = np.where(rng.rand(10, 10) < 0.5, -0.0, -0.25)
+        return x, 200
+    if kind == 'inf_nan':
+        x = rng.rand(3, 40, 40).astype(np.float32)
+        x[0, 5, 5], x[0, 30, 30] = np.inf, -np.inf
+        x[1, ::7, ::5] = np.nan
+        x[2] = -np.inf
+        x[2, 10, 10] = np.nan
+        return x, 64
+    if kind == 'ragged_bands':       # h not a multiple of the 8 bands
+        return rng.rand(3, 37, 41).astype(np.float32) ** 4, 50
+    if kind == 'tiled_bands':        # row tiles, list cut back
+        return rng.rand(2, 300, 600).astype(np.float32) ** 4, 300
+    if kind == 'wide':               # column tiles too
+        return rng.rand(2, 20, 2100).astype(np.float32) ** 4, 100
+    if kind == 'wide_sparse':        # zero fill across column tiles
+        x = np.zeros((2, 16, 2100), np.float32)
+        x[:, 1, 2090], x[:, 9, 3] = 0.5, 0.25
+        return x, 64
+    if kind == 'tall_sparse':        # bands past the zero mask's cells
+        x = np.zeros((2, 600, 200), np.float32)
+        x[:, 100, 100], x[:, 599, 0] = 0.5, 0.25
+        return x, 300
+    if kind == 'plateaus':           # every cell of a band survives
+        return (np.round(rng.rand(3, 64, 300) * 2) / 2).astype(np.float32), 700
+    if kind == 'lowres_fixed_height':
+        return rng.rand(136, 160, 256).astype(np.float32) ** 4, 32
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize('kind', [
+    'few_positive', 'all_zero', 'all_negative', 'constant_negative',
+    'neg_zero', 'inf_nan', 'ragged_bands', 'tiled_bands', 'wide',
+    'wide_sparse', 'tall_sparse', 'plateaus', 'lowres_fixed_height'])
+@pytest.mark.parametrize('path', ['k_to_32', 'k_over_32'])
+def test_nms_topk_kernel_value_classes(cuda, kind, path):
+    """Each input at a k of the warp-sorted lists (k <= 32) and of the
+    radix-selected ones (k > 32)."""
+    x, k = nms_case(kind, np.random.RandomState(22))
+    k = min(k, 20) if path == 'k_to_32' else max(k, 33)
+    assert_nms_topk_matches_plain(torch.from_numpy(x).to(cuda), k)
+
+
+@pytest.mark.parametrize('h', [1, 2, 3, 4, 5])
+def test_nms_topk_kernel_tiny_maps(cuda, h):
+    """Maps of 1x1 to 5x7, at k = 1 and k = every cell: bands with no rows
+    give no keys."""
+    rng = np.random.RandomState(23 + h)
+    for w in range(1, 8):
+        x = (np.round(rng.rand(4, h, w) * 3) / 3 - 0.3).astype(np.float32)
+        for k in sorted({1, h * w}):
+            assert_nms_topk_matches_plain(torch.from_numpy(x).to(cuda), k)
+
+
+def test_nms_topk_kernel_takes_non_contiguous_maps(cuda):
+    """Non-contiguous (M, h, w) maps (a strided slice of a wider array): the
+    wrapper launches on a contiguous copy."""
+    rng = np.random.RandomState(24)
+    out = torch.from_numpy(rng.rand(14, 30, 51).astype(np.float32) ** 4)
+    view = out.to(cuda)[:, :, 5:45]
+    assert not view.is_contiguous()
+    assert_nms_topk_matches_plain(view, 24)
+    v, i = nms_topk.nms_topk(view, 24)
+    pv, pi = nms_topk.nms_topk(view.contiguous(), 24)
+    assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))

@@ -63,3 +63,24 @@ def test_cpu_tensor_takes_the_plain_version():
     pv, pi = cuda_nms.nms_topk_plain(x, 5)
     assert torch.equal(v, pv) and torch.equal(i, pi)
     assert cuda_nms.nms_topk.launches == before
+
+
+def test_plain_matches_pallas_past_k_512():
+    """k = 600 on (2, 40, 40): the JAX kernel returns a result at any k,
+    and the plain version (the kernel's reference) equals it exactly."""
+    x = maps('pow4', (2, 40, 40), seed=5)
+    v, i = cuda_nms.nms_topk(torch.from_numpy(x), 600)
+    pv, pi = nms_topk_pallas(jnp.asarray(x), 600, interpret=True)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(pi))
+
+
+def test_takes_non_contiguous_maps():
+    """Non-contiguous (M, h, w) maps (a strided slice of a wider array) give
+    the result of their contiguous copy."""
+    out = np.random.RandomState(6).rand(10, 12, 21).astype(np.float32)
+    view = torch.from_numpy(out)[:, :, 3:18]
+    assert not view.is_contiguous()
+    v, i = cuda_nms.nms_topk(view, 7)
+    pv, pi = cuda_nms.nms_topk(view.contiguous(), 7)
+    assert torch.equal(v, pv) and torch.equal(i, pi)

@@ -103,3 +103,13 @@ def test_cpu_tensor_takes_plain_path():
     before = peaks.peaks_topk.launches
     peaks.peaks_topk(torch.zeros(2, 8, 8), 4)
     assert peaks.peaks_topk.launches == before
+
+
+def test_plain_matches_pallas_past_k_512():
+    """k = 600 on (2, 24, 24): the JAX kernel returns a result at any k;
+    positions exact, values within the file's tolerance."""
+    x = make_maps('pow4', np.random.RandomState(8), 2, 24, 24)
+    ours = peaks.peaks_topk(torch.from_numpy(x), 600)
+    ref = fused_peaks_topk_pallas(jnp.asarray(x), 600, factor=4,
+                                  method='bicubic', interpret=True)
+    check(ours, tuple(np.asarray(r) for r in ref))

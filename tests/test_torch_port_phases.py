@@ -49,19 +49,80 @@ def test_phase_cuts_find_their_anchors():
         assert f'constexpr int TILE = {tile};' in v['topk', f'tile_{tile}']
 
 
+def test_merge_kernels_keep_their_scratch_in_dynamic_shared_memory():
+    """The k > 512 repair: each merge launch takes win_keys(k) + k keys of
+    dynamic shared memory (no fixed k), and the cut copies keep that."""
+    v = kernel_phases.variants(CSRC)
+    for name, merge in (('peaks', 'peaks_merge_kernel'),
+                        ('topk', 'topk_merge_kernel')):
+        for var in ('full', 'no_select'):
+            body = v[name, var][v[name, var].index(f'{merge}('):]
+            assert 'extern __shared__ unsigned long long wc[];' in body
+            assert 'best = wc + og::win_keys(k);' in body
+        src = (CSRC / f'{name}.cu').read_text()
+        assert 'og::allow_dynamic_smem(' in src and 'MAX_K' not in src
+    topk_tile = kernel_body(v['topk', 'no_select'], 'topk_tile_kernel',
+                            'topk_merge_kernel')
+    assert 'extern __shared__ unsigned long long win[];' in topk_tile
+    assert 'MAX_K' not in (CSRC / 'topk_select.cuh').read_text()
+
+
+# the two-launch nms_topk.cu (the kernel's first design): its tile
+# selection call and its merge's gather, verbatim
+TWO_LAUNCH_NMS = '''#include "topk_select.cuh"
+__global__ void nms_topk_tile_kernel(int k, unsigned long long* cand) {
+  const int tiles = gridDim.x * gridDim.y;
+  og::block_select(keys, T * T / (THREADS / 32), k, wcand,
+                   cand + ((size_t)m * tiles + (size_t)ty * gridDim.x + tx) * k);
+}
+__global__ void nms_topk_merge_kernel(int h, int w, int k) {
+  for (int r = threadIdx.x; r < k; r += blockDim.x) {
+    const int i = (int)og::key_index(best[r]);
+  }
+}
+'''
+
+
+def test_nms_topk_cuts_find_their_anchors(tmp_path):
+    """The two-launch source's `no_select` cut (its tile selection becomes
+    a sink, its merge's gather is clamped into the map), and this tree's
+    one-launch source: phase markers and each ablation's anchor."""
+    (tmp_path / 'nms_topk.cu').write_text(TWO_LAUNCH_NMS)
+    v = kernel_phases.nms_topk_variants(CSRC, tmp_path)
+    assert set(v) == {('nms_topk', 'full'), ('nms_topk', 'phased'),
+                      ('nms_topk', 'baseline'),
+                      ('nms_topk', 'baseline_no_select')} | {
+        ('nms_topk', cut) for cut in {**kernel_phases.NMS_CUTS,
+                                      **kernel_phases.NMS_SETTINGS}}
+    cut = v['nms_topk', 'baseline_no_select']
+    assert 'og::block_select(' not in cut and 'og_phase_sink(keys' in cut
+    assert '% (uint32_t)(h * w)' in cut
+    src = (CSRC / 'nms_topk.cu').read_text()
+    assert not kernel_phases.SELECT.search(src)
+    timed, names = kernel_phases.phased(src, 'nms_topk')
+    assert names == ['load', 'nms', 'reduce', 'band_select', 'to_leader',
+                     'merge', 'write']
+    assert 'smem[]; og_phase_begin();' in timed
+    for name, edits in {**kernel_phases.NMS_CUTS,
+                        **kernel_phases.NMS_SETTINGS}.items():
+        assert v['nms_topk', name] != src
+        for old, new in edits:
+            assert old in src and new in v['nms_topk', name]
+
+
 def test_grouping_phase_markers_and_barriers():
     """The grouping copy times every marked phase, and a source without
     markers (an older tree's) gets one after each barrier, named by its
     line; the barriers one image passes are counted from the source."""
     src = (CSRC / 'grouping.cu').read_text()
-    timed, names = kernel_phases.phased_grouping(src)
+    timed, names = kernel_phases.phased(src)
     assert names == ['merge_find', 'merge_copy', 'rows', 'new_rows', 'init',
                      'dedup', 'final_score', 'final_write']
     assert 'smem[]; og_phase_begin();' in timed
     assert timed.count('og_phase_stamp(OG_PHASE_##name)') == 1
     assert chip_smoke.grouping_barriers(src, 19, 2) == 19 * 4 + 2 * 2 + 3
     unmarked = src.replace('OG_PHASE(', 'NO_PHASE(')
-    timed, names = kernel_phases.phased_grouping(unmarked)
+    timed, names = kernel_phases.phased(unmarked)
     lines = unmarked.split('\n')
     assert names == [f'line{i + 1}' for i, ln in enumerate(lines)
                      if '__syncthreads();' in ln]

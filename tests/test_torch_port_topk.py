@@ -87,3 +87,13 @@ def test_cpu_tensor_takes_the_plain_version():
     pv, pi = cuda_topk.topk_plain(x, 7)
     assert torch.equal(v, pv) and torch.equal(i, pi)
     assert cuda_topk.topk.launches == before
+
+
+def test_plain_topk_matches_pallas_past_k_512():
+    """k = 600 on (2, 40, 40): the JAX kernel returns a result at any k,
+    and the plain version (the kernel's reference) equals it exactly."""
+    x = inputs('ties', (2, 40, 40), seed=5)
+    v, i = cuda_topk.topk(torch.from_numpy(x).reshape(2, -1), 600)
+    pv, pi = topk_pallas(jnp.asarray(x), 600, interpret=True)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(pi))
