@@ -1228,6 +1228,315 @@ def phase_oracle(dev, root):
     return launches
 
 
+# the [train] phase: the JAX trainer's CLI defaults at full width
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_IMAGES = 16, 512, 12, 64
+TRAIN_REMAT = False      # batch 16 fits the card without remat
+# the one-step card-vs-CPU check: tests/test_torch_port_train.py's tiny
+# model, batch and tolerances (gradients rtol 1e-3 with atol 1e-4 of the
+# largest, BN statistics 1e-5, losses 1e-4 relative)
+TINY_TRAIN = dict(n_stacks=1, hg_order=2, dims=(16, 16, 24),
+                  modules=(1, 1, 1), cnv_dim=16, compute_dtype='float32')
+
+
+def phase_train(dev, root, skeleton, records):
+    """`cli.train.main` on the card at full width (Hourglass-104, bf16
+    autocast, fp32 parameters and BatchNorm statistics, Adam) on the
+    64-image hard set: 512^2, batch 16, 12 steps. Checks finite losses, no
+    skipped step, a falling heatmap loss and a checkpoint; prints train
+    img/s (host clock over steps 3-12, each step ending in a sync), the
+    step split by CUDA events, host wait and peak memory. Then serves the
+    checkpoint (the hand-off): its launches are the `train_handoff` path.
+    Returns {'train_handoff': launches}."""
+    import torch
+    from offsetguided_tpu_torch.cli import train
+    from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
+
+    img_dir, ann = make_hard_dataset(os.path.join(root, 'train'),
+                                     n_images=TRAIN_IMAGES, seed=0, ext='npy')
+    ckpt_dir = os.path.join(root, 'checkpoints')
+    argv = ['--device-aug', '--train-image-dir', img_dir,
+            '--train-annotations', ann, '--batch-size', str(TRAIN_BATCH),
+            '--square-length', str(TRAIN_SIZE), '--max-steps',
+            str(TRAIN_STEPS), '--print-freq', '1', '--checkpoint-dir',
+            ckpt_dir] + (['--remat'] if TRAIN_REMAT else [])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    r = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if any(read_launches().values()):
+        fail(f'training launched a decode kernel: {read_launches()}')
+    hist = r['history']
+    if r['steps'] != TRAIN_STEPS or len(hist) != TRAIN_STEPS:
+        fail(f'train: {r["steps"]} steps, {len(hist)} records')
+    for h in hist:
+        log(f'[train] step {h["step"]}: total {h["total"]:.4f} hmp '
+            f'{h["hmp"]:.4f} omp {h["omp"]:.6f} scmp {h["scmp"]:.4f} '
+            f'skipped {h["skipped"]:.0f}, host wait {h["host_wait_s"]:.4f} '
+            f's, feed {h["feed_ms"]:.2f} ms, forward+backward+optimizer '
+            f'{h["step_ms"]:.2f} ms (CUDA events)')
+    bad = [h['step'] for h in hist
+           if not all(np.isfinite(h[k]) for k in ('total', 'hmp', 'bg',
+                                                  'jomp', 'omp', 'scmp'))]
+    if bad:
+        fail(f'train: non-finite losses at steps {bad}')
+    if any(h['skipped'] != 0.0 for h in hist):
+        fail(f'train: skipped steps {[h["step"] for h in hist if h["skipped"]]}')
+    if not hist[-1]['hmp'] < hist[0]['hmp']:
+        fail(f'train: heatmap loss did not fall: step 1 {hist[0]["hmp"]}, '
+             f'step {TRAIN_STEPS} {hist[-1]["hmp"]}')
+    if not (r['checkpoint'] and os.path.isfile(r['checkpoint'])):
+        fail(f'train: no checkpoint ({r["checkpoint"]})')
+    timed = hist[2:]                 # steps 3..12
+    rate = TRAIN_BATCH * len(timed) / (timed[-1]['t'] - hist[1]['t'])
+    gaps = sorted(b['t'] - a['t'] for a, b in zip(hist[1:], hist[2:]))
+    mean = lambda k: sum(h[k] for h in timed) / len(timed)
+    log(f'[train] Hourglass-104 {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, '
+        f'{TRAIN_STEPS} steps{" with --remat" if TRAIN_REMAT else ""}: '
+        f'{rate:.2f} img/s (host clock over steps 3-{TRAIN_STEPS}, with the '
+        f'epoch-end checkpoint writes after steps 4 and 8); '
+        f'{TRAIN_BATCH / gaps[len(gaps) // 2]:.2f} img/s at the median step '
+        f'({gaps[len(gaps) // 2] * 1e3:.1f} ms, host clock); per step '
+        f'feed (H2D + augment + encode) {mean("feed_ms"):.2f} ms, forward + '
+        f'backward + optimizer {mean("step_ms"):.2f} ms (CUDA events), host '
+        f'wait {mean("host_wait_s") * 1e3:.2f} ms; peak memory {peak:.2f} '
+        f'GiB; heatmap loss {hist[0]["hmp"]:.4f} -> {hist[-1]["hmp"]:.4f}; '
+        f'{wall:.1f} s in all; checkpoint {os.path.basename(r["checkpoint"])}'
+        f' | {card_line()}')
+    phase_train_profile(dev, img_dir, ann)
+    return {'train_handoff': phase_train_handoff(
+        dev, r['checkpoint'], r['model_cfg'], skeleton, records)}
+
+
+def phase_train_profile(dev, img_dir, ann):
+    """Where a training step's time goes, at the [train] configuration:
+    the host loader's batch (host clock), the feed split by CUDA events
+    (H2D from pinned memory, the warp + photometric + annotation pass, GT
+    encoding, mask downscaling; mean of 3 batches after one warm-up), and
+    one train step under torch.profiler by kernel category, with the
+    device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from offsetguided_tpu_torch.config.defaults import (
+        AugmentationConfig, EncoderConfig, LossConfig, ModelConfig,
+        SkeletonConfig, TrainConfig)
+    from offsetguided_tpu_torch.data import pipeline
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.models.network import init_reference_
+    from offsetguided_tpu_torch.ops.augment import augment_batch_dict
+    from offsetguided_tpu_torch.ops.encoder import (downscale_mask,
+                                                    encode_targets)
+    from offsetguided_tpu_torch.parallel.train_step import (TrainStep,
+                                                            make_optimizer)
+
+    sk = SkeletonConfig()
+    enc = EncoderConfig()
+    ds = pipeline.CocoKeypoints(
+        img_dir, ann, aug=AugmentationConfig(square_length=TRAIN_SIZE),
+        square_length=TRAIN_SIZE, device_aug=True)
+    t0 = time.perf_counter()
+    batches = [pipeline._make_batch(ds, range(i * TRAIN_BATCH,
+                                              (i + 1) * TRAIN_BATCH),
+                                    pipeline._batch_rng(0, 0, i), 0)
+               for i in range(4)]
+    loader_ms = (time.perf_counter() - t0) / 4 * 1e3
+    out_hw = TRAIN_SIZE // enc.stride
+    parts = {'h2d': 0.0, 'augment': 0.0, 'encode': 0.0, 'downscale': 0.0}
+    for i, batch in enumerate(batches):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        b = {k: torch.from_numpy(batch[k]).pin_memory().to(
+            dev, non_blocking=True) for k in ds.sample_spec()}
+        ev[1].record()
+        with torch.no_grad():
+            imgs, mask01, anns = augment_batch_dict(
+                b, TRAIN_SIZE, ds.left_index, ds.right_index)
+            ev[2].record()
+            targets = encode_targets(anns, sk.sigmas, sk.skeleton, out_hw,
+                                     out_hw, enc)
+            ev[3].record()
+            mask = downscale_mask(mask01, enc)
+            ev[4].record()
+        torch.cuda.synchronize()
+        if i:
+            for k, (a, c) in zip(parts, zip(ev, ev[1:])):
+                parts[k] += a.elapsed_time(c) / 3
+    log(f'[train profile] host loader {loader_ms:.1f} ms a batch of '
+        f'{TRAIN_BATCH} (one thread, host clock); feed by CUDA events: '
+        + ', '.join(f'{k} {v:.2f} ms' for k, v in parts.items()))
+
+    model = init_reference_(PoseNet(ModelConfig()),
+                            torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last)
+    step = TrainStep(model, make_optimizer(TrainConfig(), model.parameters()),
+                     LossConfig(stack_weights=(1.0, 1.0)))
+    for _ in range(2):
+        step(imgs, targets, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(imgs, targets, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    if not kernels:
+        log('[train profile] the profiler recorded no device time: not '
+            'measured')
+        return
+    cats = {}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        if any(t in low for t in ('conv', 'gemm', 'xmma', 'cudnn', 'sm90',
+                                  'cutlass', 'implicit', 'wgrad', 'dgrad')):
+            cat = 'convolution / matmul'
+        elif 'multi_tensor' in low or 'adam' in low:
+            cat = 'optimizer'
+        elif 'reduce' in low:
+            cat = 'reductions (BatchNorm statistics, losses)'
+        else:
+            cat = 'elementwise and copies'
+        cats[cat] = cats.get(cat, 0.0) + ms
+    busy = sum(cats.values())
+    log(f'[train profile] one step (forward + backward + Adam, profiler on): '
+        f'wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share '
+        f'{1 - busy / wall_ms:.3f}')
+    for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        log(f'[train profile]   {cat}: {ms:.2f} ms ({ms / busy:.1%} of busy)')
+    for name, ms, n in sorted(kernels, key=lambda r: -r[1])[:12]:
+        log(f'[train profile]   {ms:8.3f} ms  x{n:<5d} {name[:90]}')
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def phase_train_handoff(dev, path, model_cfg, skeleton, records):
+    """The trained checkpoint served: loaded into a serving PoseNet,
+    BatchNorm folded, one 640^2 batch decoded through the fused peaks and
+    grouping kernels (its launch counts, zeroed just before), and the
+    kernels held against their plain versions on the trained model's maps
+    and end to end."""
+    import torch
+    from offsetguided_tpu_torch.cli.serve import ServeConfig, build_infer
+    from offsetguided_tpu_torch.ops.cuda import peaks
+    from offsetguided_tpu_torch.ops.image import normalize_images
+
+    sd = torch.load(path, map_location='cpu', weights_only=False)['model']
+    infer, _, _, model = build_infer(ServeConfig(), model_cfg, state_dict=sd,
+                                     device=dev)
+    images = torch.from_numpy(np.random.RandomState(11).randint(
+        0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
+    reset_launches()
+    poses, scores, counts = infer(images)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches('train_handoff', launches, ('peaks', 'grouping'),
+                   never=('topk', 'nms_topk'))
+    with plain_kernels():
+        rp, rs, rc = infer(images)
+    if not (torch.equal(counts, rc) and float((poses - rp).abs().max()) <= 1e-4
+            and float((scores - rs).abs().max()) <= 1e-5):
+        fail('train hand-off: kernel and plain decodes differ')
+
+    pp = infer.postprocessor
+    with torch.inference_mode():
+        preds = model(normalize_images(images))
+        hmp = pp.select_stage(preds)['hmp']
+        n, h, w, c = hmp.shape
+        maps = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous()
+        packed = pp.decode_packed_limbs(preds).contiguous()
+    v, ys, xs = peaks.peaks_topk(maps, TOPK)
+    pv, pys, pxs = peaks.peaks_topk_plain(maps, TOPK)
+    if not (torch.equal(ys, pys) and torch.equal(xs, pxs)
+            and torch.equal(bits(v), bits(pv))):
+        fail('train hand-off: peaks kernel differs from plain')
+    err = compare_grouping('[train hand-off] grouping', packed, skeleton,
+                           pp.cfg)
+    r = records['grouping']
+    r['max_abs_err'] = max(r['max_abs_err'], err)
+    log(f'[train hand-off] trained checkpoint served at {LONG_EDGE}^2 batch '
+        f'{N_IMG}: counts {counts.tolist()}, kernel launches {launches}; '
+        f'decode identical to the plain kernels end to end, peaks bit-equal '
+        f'on the trained maps')
+    return launches
+
+
+def tiny_train_batch():
+    """Seeded uint8 images, annotations and mask of the one-step check."""
+    rng = np.random.RandomState(2)
+    size, n = 64, 2
+    anns = np.zeros((n, 4, J, 4), np.float32)
+    anns[:, :2, :, :2] = rng.rand(n, 2, J, 2) * size
+    anns[:, :2, :, 2] = 2.0
+    anns[:, :2, :, 3] = 5.0
+    images = (rng.rand(n, size, size, 3) * 255).astype(np.uint8)
+    mask = np.ones((n, size // 4, size // 4, 1), bool)
+    mask[0, :3] = False
+    return images, anns, mask
+
+
+def phase_train_one_step(dev):
+    """One fp32 SGD step (TF32 off) of the tiny model on the card and on
+    the CPU, from the same weights and batch: losses, parameters (as
+    gradients: the step is lr * gradient) and BatchNorm statistics within
+    the CPU tests' tolerances."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import (
+        EncoderConfig, LossConfig, ModelConfig, SkeletonConfig, TrainConfig)
+    from offsetguided_tpu_torch.device import disable_tf32
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.models.network import init_reference_
+    from offsetguided_tpu_torch.ops.encoder import encode_targets
+    from offsetguided_tpu_torch.parallel.train_step import (TrainStep,
+                                                            make_optimizer)
+
+    disable_tf32()
+    sk = SkeletonConfig()
+    images, anns, mask = tiny_train_batch()
+    cfg = ModelConfig(**TINY_TRAIN)
+    init = init_reference_(PoseNet(cfg), torch.Generator().manual_seed(0))
+    lr = 1e-3
+    out = {}
+    for where in ('cpu', dev):
+        net = PoseNet(cfg)
+        net.load_state_dict(init.state_dict())
+        net = net.to(where)
+        t = encode_targets(torch.from_numpy(anns).to(where), sk.sigmas,
+                           sk.skeleton, 16, 16, EncoderConfig(max_persons=4))
+        step = TrainStep(net, make_optimizer(
+            TrainConfig(optimizer='sgd', learning_rate=lr), net.parameters()),
+            LossConfig(stack_weights=(1.0,)))
+        m = step(torch.from_numpy(images).to(where), t,
+                 torch.from_numpy(mask).to(where))
+        out[str(where)] = ({k: float(v) for k, v in m.items()},
+                           {k: v.detach().cpu().double()
+                            for k, v in net.state_dict().items()})
+    torch.backends.cudnn.allow_tf32 = True
+    (mc, sc), (mg, sg) = out['cpu'], out[str(dev)]
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    p0 = {k: v.double() for k, v in init.state_dict().items()}
+    grads = {k: ((p0[k] - sc[k]) / lr, (p0[k] - sg[k]) / lr) for k in sc
+             if 'running' not in k and 'num_batches' not in k}
+    gmax = max(float(a.abs().max()) for a, _ in grads.values())
+    g_err = max(float(((b - a).abs() - 1e-3 * a.abs()).max())
+                for a, b in grads.values()) / gmax
+    bn_err = max(float((sg[k] - sc[k]).abs().max()) for k in sc
+                 if 'running' in k)
+    log(f'[train one-step] fp32 SGD step of the tiny model, card vs CPU: '
+        f'losses max rel err {loss_err:.3g}, gradients max (|diff| - 1e-3 '
+        f'|g|) {g_err:.3g} of the largest gradient {gmax:.3g}, BN '
+        f'statistics max abs err {bn_err:.3g}')
+    if not (loss_err <= 1e-4 and g_err <= 1e-4 and bn_err <= 1e-5
+            and mc['skipped'] == mg['skipped'] == 0.0):
+        fail('train one-step: card and CPU differ past the CPU tests\' '
+             'tolerances')
+
+
 def main() -> int:
     try:
         import torch
@@ -1258,6 +1567,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         launches.update(phase_evaluate(dev, root))
         launches.update(phase_oracle(dev, root))
+        torch.cuda.empty_cache()
+        launches.update(phase_train(dev, root, skeleton, records))
+    phase_train_one_step(dev)
 
     kernels = []
     for key in KERNELS:

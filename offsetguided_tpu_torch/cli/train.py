@@ -1,0 +1,394 @@
+#!/usr/bin/env python
+"""Training on one device, on the device-augmentation route.
+
+Port of the JAX package's `cli/train.py` with its flag names and defaults,
+on `--device` (the card unless told otherwise). Each step: the host
+thread reads images, renders miss masks and samples augmentation
+parameters (`data/pipeline.py`); the batch goes to the device (pinned,
+non-blocking); there the warp, photometric pass and annotation transform
+(`ops/augment.py`), GT encoding and mask downscaling (`ops/encoder.py`)
+make the targets; then the train step (`parallel/train_step.py`): forward
+in train mode (bf16 autocast backbone, fp32 parameters and BatchNorm
+statistics), losses, backward, the explosion guard, Adam. Checkpoints at
+epoch ends (`--save-every`) and at `--max-steps`.
+
+Not ported, refused with a message: the host augmentation route (no
+`--device-aug`) and with it the `--val-*` validation pass, loader worker
+processes (`--loader-workers > 0`), `--distributed`, `--freeze`,
+`--drop-layers`, `--basenet hourglass4stage`, `--dataset crowdpose` and
+`--warp-impl tiled` (the TPU's banded-matmul warp).
+
+    python -m offsetguided_tpu_torch.cli.train --device-aug \\
+        --train-image-dir images --train-annotations ann.json
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def cli(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    g = p.add_argument_group('data')
+    g.add_argument('--train-image-dir', required=True)
+    g.add_argument('--train-annotations', required=True)
+    g.add_argument('--val-image-dir', default=None)
+    g.add_argument('--val-annotations', default=None)
+    g.add_argument('--square-length', type=int, default=512)
+    g.add_argument('--max-persons', type=int, default=32)
+    g.add_argument('--n-images', type=int, default=None)
+    g.add_argument('--warp-impl', default='patch', choices=['patch', 'tiled'],
+                   help='device-aug bicubic warp: patch = 4x4 footprint '
+                        'gather (tiled, the TPU banded-matmul form, is not '
+                        'ported)')
+    g.add_argument('--device-aug', action='store_true',
+                   help='warp + photometric augmentation on the device (the '
+                        'only route ported; required)')
+    g.add_argument('--raw-canvas', type=int, default=640,
+                   help='device-aug: fixed raw-image canvas side (largest '
+                        'source image side; COCO is 640)')
+
+    g = p.add_argument_group('augmentation')
+    g.add_argument('--flip-prob', type=float, default=0.5)
+    g.add_argument('--max-rotate', type=float, default=45.0)
+    g.add_argument('--min-scale', type=float, default=0.5)
+    g.add_argument('--max-scale', type=float, default=2.0)
+    g.add_argument('--min-stretch', type=float, default=0.95)
+    g.add_argument('--max-stretch', type=float, default=1.05)
+    g.add_argument('--max-translate', type=int, default=150)
+
+    g = p.add_argument_group('encoder')
+    g.add_argument('--sigma', type=float, default=7.0)
+    g.add_argument('--gaussian-clip', type=float, default=0.01)
+    g.add_argument('--fill-jitter-size', type=int, default=3)
+    g.add_argument('--fill-scale-size', type=int, default=7)
+
+    g = p.add_argument_group('model')
+    g.add_argument('--basenet', default='hourglass104',
+                   choices=['hourglass104', 'hourglass52', 'hourglass4stage'])
+    g.add_argument('--n-stacks', type=int, default=2)
+    g.add_argument('--no-background', action='store_true')
+    g.add_argument('--no-jitter-offset', action='store_true')
+    g.add_argument('--no-scale', action='store_true')
+    g.add_argument('--n-limbs', type=int, default=19,
+                   choices=[16, 19, 25, 31, 44])
+    g.add_argument('--dataset', default='coco', choices=['coco', 'crowdpose'])
+    g.add_argument('--hg-order', type=int, default=None)
+    g.add_argument('--dims', default=None,
+                   help='comma-separated per-level channel dims '
+                        '(len = hg_order + 1)')
+    g.add_argument('--modules', default=None,
+                   help='comma-separated per-level residual-module counts')
+    g.add_argument('--cnv-dim', type=int, default=None)
+    g.add_argument('--remat', action='store_true',
+                   help='recompute each hourglass stack in the backward '
+                        '(torch.utils.checkpoint): ~n_stacks x less '
+                        'activation memory for ~1 extra forward per stack')
+
+    g = p.add_argument_group('optimization')
+    g.add_argument('--optimizer', default='adam', choices=['adam', 'sgd'])
+    g.add_argument('--opt-state-dtype', default='float32',
+                   choices=['float32', 'bfloat16'])
+    g.add_argument('--lr', type=float, default=1.25e-4)
+    g.add_argument('--momentum', type=float, default=0.9)
+    g.add_argument('--weight-decay', type=float, default=0.0)
+    g.add_argument('--max-grad-norm', type=float, default=None)
+    g.add_argument('--epochs', type=int, default=120)
+    g.add_argument('--batch-size', type=int, default=16)
+    g.add_argument('--warmup-epochs', type=int, default=0)
+    g.add_argument('--freeze', default=None)
+
+    g = p.add_argument_group('losses')
+    g.add_argument('--hmp-loss', default='focal_l2', choices=['l2', 'focal_l2'])
+    g.add_argument('--offset-loss', default='offset_instance_l1',
+                   choices=['offset_l1', 'offset_instance_l1',
+                            'offset_laplace'])
+    g.add_argument('--jitter-offset-loss', default='offset_l1',
+                   choices=['offset_l1', 'offset_instance_l1',
+                            'offset_laplace'])
+    g.add_argument('--scale-loss', default='scale_l1', choices=['scale_l1'])
+    g.add_argument('--sqrt-re', dest='sqrt_re', action='store_true',
+                   default=True)
+    g.add_argument('--no-sqrt-re', dest='sqrt_re', action='store_false')
+    g.add_argument('--ftao', type=float, default=0.01)
+    g.add_argument('--fgamma', type=float, default=2.0)
+    g.add_argument('--lmargin', type=float, default=1e-5)
+    g.add_argument('--scale-margin', type=float, default=0.1)
+    g.add_argument('--lambdas', type=float, nargs=5,
+                   default=[1.0, 0.0, 0.0, 10000.0, 10.0])
+    g.add_argument('--stack-weights', type=float, nargs='+', default=None)
+
+    g = p.add_argument_group('runtime')
+    g.add_argument('--device', default=None,
+                   help="torch device; default the CUDA card")
+    g.add_argument('--checkpoint-dir', default='checkpoints')
+    g.add_argument('--resume', default=None,
+                   help="a checkpoint of this package's trainer")
+    g.add_argument('--torch-checkpoint', default=None,
+                   help='warm start from a reference .pth (full network or '
+                        'backbone only; unmatched entries keep their fresh '
+                        'initialization)')
+    g.add_argument('--drop-optim-state', action='store_true')
+    g.add_argument('--recount-epoch', action='store_true')
+    g.add_argument('--drop-layers', default=None)
+    g.add_argument('--print-freq', type=int, default=20)
+    g.add_argument('--log-file', default=None)
+    g.add_argument('--save-every', type=int, default=1)
+    g.add_argument('--distributed', action='store_true')
+    g.add_argument('--coordinator-address', default=None)
+    g.add_argument('--num-processes', type=int, default=None)
+    g.add_argument('--process-id', type=int, default=None)
+    g.add_argument('--seed', type=int, default=0)
+    g.add_argument('--loader-workers', type=int, default=0)
+    g.add_argument('--debug-tiny-model', action='store_true',
+                   help='swap in a narrow backbone (CI smoke tests)')
+    g.add_argument('--max-steps', type=int, default=None,
+                   help='stop after this many optimizer steps')
+    args = p.parse_args(argv)
+
+    refused = [
+        (not args.device_aug, '--device-aug is required: the host '
+         'augmentation route (cv2 warp on the host) is not ported'),
+        (bool(args.val_image_dir or args.val_annotations), '--val-* '
+         'validation needs unaugmented host samples (the host route), which '
+         'is not ported'),
+        (args.loader_workers > 0, '--loader-workers > 0: worker processes '
+         'are not ported (0 = one background thread)'),
+        (args.distributed, '--distributed: multi-process training is not '
+         'ported'),
+        (args.freeze is not None, '--freeze is not ported'),
+        (args.drop_layers is not None, '--drop-layers is not ported'),
+        (args.basenet == 'hourglass4stage', '--basenet hourglass4stage is '
+         'not ported'),
+        (args.dataset == 'crowdpose', '--dataset crowdpose is not ported'),
+        (args.warp_impl == 'tiled', '--warp-impl tiled (the TPU banded-'
+         'matmul warp) is not ported; use --warp-impl patch'),
+    ]
+    for bad, msg in refused:
+        if bad:
+            p.error(msg)
+    return args
+
+
+def model_config(args, heads):
+    from ..config.defaults import ModelConfig
+    if args.debug_tiny_model:
+        return ModelConfig(basenet=args.basenet, n_stacks=args.n_stacks,
+                           hg_order=2, dims=(16, 16, 24), modules=(1, 1, 1),
+                           cnv_dim=16, compute_dtype='float32', heads=heads,
+                           remat=args.remat)
+    kw = {}
+    if args.hg_order is not None:
+        kw['hg_order'] = args.hg_order
+    if args.dims is not None:
+        kw['dims'] = tuple(int(d) for d in args.dims.split(','))
+    if args.modules is not None:
+        kw['modules'] = tuple(int(m) for m in args.modules.split(','))
+    if args.cnv_dim is not None:
+        kw['cnv_dim'] = args.cnv_dim
+    return ModelConfig(basenet=args.basenet, n_stacks=args.n_stacks,
+                       heads=heads, remat=args.remat, **kw)
+
+
+def main(argv=None) -> Dict:
+    """Trains; returns a summary: `steps`, `checkpoint` (the last path
+    written), `history` (one record per printed step: the losses,
+    `skipped`, `host_wait_s`, `feed_s`, `imgs_per_sec`, the host clock `t`
+    after the step finished and, on a CUDA device, `feed_ms` and `step_ms`
+    by CUDA events over the printed interval), `device` and `model_cfg`."""
+    args = cli(argv)
+    from ..config.defaults import (AugmentationConfig, EncoderConfig,
+                                   HeadsConfig, LossConfig, SkeletonConfig,
+                                   TrainConfig)
+    from ..data.pipeline import CocoKeypoints, batch_iterator
+    from ..device import resolve_device
+    from ..models import PoseNet
+    from ..models import checkpoint as ckpt
+    from ..models.checkpoint import load_reference_checkpoint
+    from ..models.network import init_reference_
+    from ..ops.augment import augment_batch_dict
+    from ..ops.encoder import downscale_mask, encode_targets
+    from ..parallel.train_step import (TrainStep, make_optimizer,
+                                       step_lr_schedule)
+    from ..utils.logging import configure, log_record
+    from ..utils.meters import AverageMeter, Throughput
+
+    configure(args.log_file)
+    logger = logging.getLogger('train')
+    dev = resolve_device(args.device)
+    cuda = dev.type == 'cuda'
+
+    skeleton = SkeletonConfig.coco(args.n_limbs)
+    heads = HeadsConfig(
+        n_keypoints=skeleton.n_keypoints, n_limbs=skeleton.n_limbs,
+        include_background=not args.no_background,
+        include_jitter_offset=not args.no_jitter_offset,
+        include_scale=not args.no_scale)
+    model_cfg = model_config(args, heads)
+    enc_cfg = EncoderConfig(max_persons=args.max_persons, sigma=args.sigma,
+                            gaussian_clip=args.gaussian_clip,
+                            fill_jitter_size=args.fill_jitter_size,
+                            fill_scale_size=args.fill_scale_size)
+    loss_cfg = LossConfig(
+        heatmap_loss=args.hmp_loss, offset_loss=args.offset_loss,
+        jitter_loss=args.jitter_offset_loss, scale_loss=args.scale_loss,
+        fgamma=args.fgamma, ftao=args.ftao, lambdas=tuple(args.lambdas),
+        offset_margin=args.lmargin, scale_margin=args.scale_margin,
+        sqrt_re=args.sqrt_re,
+        stack_weights=(tuple(args.stack_weights) if args.stack_weights
+                       else (1.0,) * args.n_stacks))
+    train_cfg = TrainConfig(optimizer=args.optimizer,
+                            opt_state_dtype=args.opt_state_dtype,
+                            learning_rate=args.lr, momentum=args.momentum,
+                            weight_decay=args.weight_decay,
+                            epochs=args.epochs, batch_size=args.batch_size,
+                            warmup_epochs=args.warmup_epochs,
+                            square_length=args.square_length,
+                            checkpoint_dir=args.checkpoint_dir,
+                            seed=args.seed)
+    aug_cfg = AugmentationConfig(
+        square_length=args.square_length, flip_prob=args.flip_prob,
+        max_rotate=args.max_rotate, min_scale=args.min_scale,
+        max_scale=args.max_scale, min_stretch=args.min_stretch,
+        max_stretch=args.max_stretch, max_translate=args.max_translate)
+    dataset = CocoKeypoints(
+        args.train_image_dir, args.train_annotations, skeleton=skeleton,
+        aug=aug_cfg, square_length=args.square_length,
+        max_persons=args.max_persons, n_images=args.n_images,
+        device_aug=True, raw_canvas=args.raw_canvas)
+    steps_per_epoch = max(len(dataset) // args.batch_size, 1)
+    logger.info('dataset: %d images, %d steps/epoch, device %s',
+                len(dataset), steps_per_epoch, dev)
+
+    model = init_reference_(PoseNet(model_cfg),
+                            torch.Generator().manual_seed(args.seed))
+    if args.torch_checkpoint:
+        missing, unexpected = model.load_state_dict(
+            load_reference_checkpoint(args.torch_checkpoint), strict=False)
+        if unexpected:
+            raise ValueError(f'{args.torch_checkpoint}: entries the model '
+                             f'does not have: {unexpected[:5]}')
+        logger.info('torch warm start from %s (%d entries keep their fresh '
+                    'init)', args.torch_checkpoint, len(missing))
+    model = model.to(dev, memory_format=torch.channels_last)
+    optimizer = make_optimizer(train_cfg, model.parameters())
+    start_step, start_epoch = 0, 0
+    if args.resume:
+        start_step, start_epoch, _ = ckpt.load_checkpoint(
+            args.resume, model, optimizer,
+            drop_optimizer=args.drop_optim_state,
+            recount_epoch=args.recount_epoch)
+        logger.info('resumed from %s at epoch %d, step %d', args.resume,
+                    start_epoch, start_step)
+    train_step = TrainStep(model, optimizer, loss_cfg,
+                           step_lr_schedule(train_cfg, steps_per_epoch),
+                           train_cfg.loss_explosion_guard, args.max_grad_norm)
+    train_step.step = start_step
+    out_hw = args.square_length // enc_cfg.stride
+    sigmas = np.asarray(skeleton.sigmas)
+
+    def device_batch(batch):
+        """Host batch -> (uint8 images, targets, bool mask) on the device."""
+        dev_b = {}
+        for k in dataset.sample_spec():
+            t = torch.from_numpy(batch[k])
+            dev_b[k] = (t.pin_memory().to(dev, non_blocking=True) if cuda
+                        else t)
+        with torch.no_grad():
+            imgs, mask01, anns = augment_batch_dict(
+                dev_b, args.square_length, dataset.left_index,
+                dataset.right_index)
+            targets = encode_targets(anns, sigmas, skeleton.skeleton,
+                                     out_hw, out_hw, enc_cfg)
+            return imgs, targets, downscale_mask(mask01, enc_cfg)
+
+    def event():
+        if not cuda:
+            return None
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    meter = AverageMeter()
+    tput = Throughput()
+    history = []
+    path = None
+    step = 0
+    epoch = start_epoch
+    host_wait = feed_time = 0.0     # blocked on the loader; put + aug/encode
+    spans = []                      # CUDA events (feed start, step, end)
+    it = batch_iterator(dataset, args.batch_size, seed=args.seed,
+                        epochs=args.epochs - start_epoch,
+                        num_workers=args.loader_workers)
+    try:
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                if (epoch - start_epoch) % args.save_every != 0:
+                    path = ckpt.save_checkpoint(args.checkpoint_dir, model,
+                                                optimizer, train_step.step,
+                                                epoch, meter.avg)
+                    logger.info('final checkpoint %s', path)
+                break
+            t1 = time.perf_counter()
+            e0 = event()
+            images, targets, mask = device_batch(batch)
+            e1 = event()
+            t2 = time.perf_counter()
+            host_wait += t1 - t0
+            feed_time += t2 - t1
+            metrics = train_step(images, targets, mask)
+            spans.append((e0, e1, event()))
+            step += 1
+            tput.tick(args.batch_size)
+            last = args.max_steps is not None and step >= args.max_steps
+            if step % args.print_freq == 0 or last:
+                m = {k: float(v) for k, v in metrics.items()}
+                rec = dict(step=step, epoch=epoch, **m,
+                           imgs_per_sec=round(tput.rate, 2),
+                           host_wait_s=round(host_wait, 4),
+                           feed_s=round(feed_time, 4),
+                           t=time.perf_counter())
+                if cuda:
+                    spans[-1][2].synchronize()
+                    rec['feed_ms'] = sum(a.elapsed_time(b) for a, b, _ in spans)
+                    rec['step_ms'] = sum(b.elapsed_time(c) for _, b, c in spans)
+                spans = []
+                history.append(rec)
+                meter.update(m['total'])
+                log_record(logger, 'train', type='train', epoch=epoch,
+                           step=step, loss=m['total'], head_losses=m,
+                           imgs_per_sec=rec['imgs_per_sec'],
+                           host_wait_s=rec['host_wait_s'],
+                           feed_s=rec['feed_s'])
+                host_wait = feed_time = 0.0
+            if last:
+                path = ckpt.save_checkpoint(args.checkpoint_dir, model,
+                                            optimizer, train_step.step,
+                                            epoch, meter.avg)
+                logger.info('max-steps reached, checkpoint %s', path)
+                break
+            if step % steps_per_epoch == 0:
+                epoch += 1
+                if (epoch - start_epoch) % args.save_every == 0:
+                    path = ckpt.save_checkpoint(args.checkpoint_dir, model,
+                                                optimizer, train_step.step,
+                                                epoch, meter.avg)
+                    logger.info('epoch %d done, checkpoint %s', epoch, path)
+                meter.reset()
+    finally:
+        it.close()
+    return dict(steps=step, checkpoint=path, history=history, device=str(dev),
+                model_cfg=model_cfg)
+
+
+if __name__ == '__main__':
+    main()

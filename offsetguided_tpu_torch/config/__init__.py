@@ -9,18 +9,22 @@ from .coco import (
     offset_hflip,
 )
 from .defaults import (
+    AugmentationConfig,
     DecoderConfig,
     EncoderConfig,
     EvalConfig,
     HeadsConfig,
+    LossConfig,
     ModelConfig,
     SkeletonConfig,
+    TrainConfig,
 )
 
 __all__ = [
     'COCO_KEYPOINTS', 'COCO_PERSON_SIGMAS', 'COCO_PERSON_SKELETON',
     'DATA_MEAN', 'DATA_STD', 'HFLIP',
     'heatmap_hflip', 'offset_hflip',
-    'DecoderConfig', 'EncoderConfig', 'EvalConfig', 'HeadsConfig', 'ModelConfig',
-    'SkeletonConfig',
+    'AugmentationConfig', 'DecoderConfig', 'EncoderConfig', 'EvalConfig',
+    'HeadsConfig', 'LossConfig', 'ModelConfig', 'SkeletonConfig',
+    'TrainConfig',
 ]

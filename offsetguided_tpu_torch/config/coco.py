@@ -97,6 +97,15 @@ KINEMATIC_TREE_SKELETON = (
     (6, 12), (12, 14), (14, 16),
 )
 
+# limb count -> skeleton (the reference's omp/omp16/omp25/omp31/omp44 heads)
+SKELETONS_BY_SIZE = {
+    19: COCO_PERSON_SKELETON,
+    16: KINEMATIC_TREE_SKELETON,
+    25: REDUNDANT_CONNECTIONS,
+    31: COCO_PERSON_WITH_REDUNDANT_SKELETON,
+    44: DENSER_COCO_PERSON_SKELETON,
+}
+
 HFLIP = {
     name: name.replace('left', 'right') if name.startswith('left')
     else name.replace('right', 'left')

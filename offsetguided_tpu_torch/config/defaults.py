@@ -1,12 +1,12 @@
-"""Dataclass configuration for the inference and evaluation paths of the
-PyTorch port.
+"""Dataclass configuration for the PyTorch port: inference, evaluation, the
+GT encoder, losses, optimization and augmentation.
 
-Same fields and defaults as the JAX package's `config/defaults.py` for the
-configs inference, evaluation and the GT encoder read. Dropped here, because they only steer TPU code:
-`ModelConfig.stem_s2d` (space-to-depth stem), `ModelConfig.remat`,
-`DecoderConfig.peaks_map_batch` (Pallas map batching) and
-`DecoderConfig.pallas_grouping` (the port always takes its CUDA kernels on a
-CUDA tensor and the plain PyTorch versions on a CPU tensor).
+Same fields and defaults as the JAX package's `config/defaults.py`. Dropped
+here, because they only steer TPU code: `ModelConfig.stem_s2d`
+(space-to-depth stem), `DecoderConfig.peaks_map_batch` (Pallas map
+batching) and `DecoderConfig.pallas_grouping` (the port always takes its
+CUDA kernels on a CUDA tensor and the plain PyTorch versions on a CPU
+tensor).
 """
 from __future__ import annotations
 
@@ -38,6 +38,10 @@ class SkeletonConfig:
     def offset_flip_indices(self):
         return coco.offset_hflip(self.keypoints, self.skeleton,
                                  dict(self.hflip))
+
+    @classmethod
+    def coco(cls, n_limbs: int = 19) -> 'SkeletonConfig':
+        return cls(skeleton=coco.SKELETONS_BY_SIZE[n_limbs])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +114,68 @@ class ModelConfig:
     # bf16 convolutions with fp32 BatchNorm statistics and fp32 heads
     compute_dtype: str = 'bfloat16'
     param_dtype: str = 'float32'
+    # JAX convention: running = momentum * running + (1 - momentum) * batch
     bn_momentum: float = 0.9
+    # recompute each hourglass stack in the backward instead of storing its
+    # activations (torch.utils.checkpoint): ~1 extra forward per stack for
+    # ~n_stacks x less activation memory
+    remat: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss selection and weighting. `lambdas` weight order: [hmp,
+    background, jitter-offset, offset, scale]. Defaults are the training
+    recipe: focal-L2 (gamma 2) + instance-normalized offset L1 + scale L1
+    with lambdas 1 0 0 10000 10 and sqrt-rescaled offset losses."""
+    heatmap_loss: str = 'focal_l2'
+    jitter_loss: str = 'offset_l1'
+    offset_loss: str = 'offset_instance_l1'
+    scale_loss: str = 'scale_l1'
+    lambdas: Sequence[float] = (1.0, 0.0, 0.0, 10000.0, 10.0)
+    stack_weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0)
+    ftao: float = 0.01                # focal-L2 fore/background threshold (TAU)
+    fgamma: float = 2.0               # focal-L2 scaling order (GAMMA)
+    offset_margin: float = 1e-5       # per-element losses below MARGIN are ignored
+    scale_margin: float = 0.1         # MARGIN2 for scale loss
+    sqrt_re: bool = True              # sqrt-rescale offset losses
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization recipe."""
+    optimizer: str = 'adam'           # 'adam' | 'sgd'
+    learning_rate: float = 1.25e-4    # scaled by data-parallel world size
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    # Adam moment-state dtype: 'float32' or 'bfloat16' (moments round-trip
+    # through fp32 inside the update, so only their storage loses precision)
+    opt_state_dtype: str = 'float32'
+    warmup_epochs: int = 0
+    lr_drop_epochs: Sequence[int] = (60, 78, 92, 105)
+    lr_drop_factor: float = 0.2
+    epochs: int = 120
+    batch_size: int = 16              # global batch
+    square_length: int = 512
+    loss_explosion_guard: float = 1e8  # skip batches with larger loss
+    checkpoint_dir: str = 'checkpoints'
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentationConfig:
+    """Warp-affine + photometric augmentation bounds."""
+    square_length: int = 512
+    flip_prob: float = 0.5
+    max_rotate: float = 45.0
+    min_scale: float = 0.5
+    max_scale: float = 2.0
+    min_stretch: float = 0.95
+    max_stretch: float = 1.05
+    max_translate: int = 150
+    gray_prob: float = 0.02
+    color_tint_prob: float = 0.2
+    annotation_jitter_prob: float = 0.2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -509,7 +509,7 @@ long long og_nms_topk_smem_bytes(int h, int w, int k) {
 }
 
 // x (M, h, w) f32 contiguous on the device -> vals (M, k) f32, inds (M, k)
-// int64 flat row-major. Requires 0 < k <= h * w < 2^31, 0 < M <= 65535,
+// int64 flat row-major. Requires 0 < k <= h * w < 2^31, M >= 1,
 // and og_nms_topk_smem_bytes(h, w, k) <= 227 KB.
 int og_nms_topk(const float* x, int M, int h, int w, int k, float* vals,
                 long long* inds, void* stream) {
@@ -517,9 +517,16 @@ int og_nms_topk(const float* x, int M, int h, int w, int k, float* vals,
   cudaError_t err =
       og::allow_dynamic_smem(nms_topk_kernel, KERNEL_STATIC, smem);
   if (err != cudaSuccess) return (int)err;
-  nms_topk_kernel<<<dim3(BANDS, M), THREADS, smem, (cudaStream_t)stream>>>(
-      x, h, w, k, vals, inds);
-  return (int)cudaGetLastError();
+  // maps are grid y, at most og::MAX_GRID_YZ a launch: any M in chunks
+  for (int m0 = 0; m0 < M; m0 += og::MAX_GRID_YZ) {
+    const int mc = M - m0 < og::MAX_GRID_YZ ? M - m0 : og::MAX_GRID_YZ;
+    nms_topk_kernel<<<dim3(BANDS, mc), THREADS, smem, (cudaStream_t)stream>>>(
+        x + (size_t)m0 * h * w, h, w, k, vals + (size_t)m0 * k,
+        inds + (size_t)m0 * k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

@@ -265,15 +265,23 @@ int og_peaks_topk(const float* maps, int B, int h, int w, int k,
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int HB = 2 * h, WB = 2 * w;
-  dim3 grid((WB + TB - 1) / TB, (HB + TB - 1) / TB, B);
-  peaks_tile_kernel<<<grid, THREADS, 0, s>>>(maps, h, w, k, taps, cand);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (WB + TB - 1) / TB, tiles_y = (HB + TB - 1) / TB;
+  cudaError_t err;
+  // maps are grid z, at most og::MAX_GRID_YZ a launch: any B in chunks
+  for (int b0 = 0; b0 < B; b0 += og::MAX_GRID_YZ) {
+    const dim3 grid(tiles_x, tiles_y,
+                    B - b0 < og::MAX_GRID_YZ ? B - b0 : og::MAX_GRID_YZ);
+    peaks_tile_kernel<<<grid, THREADS, 0, s>>>(
+        maps + (size_t)b0 * h * w, h, w, k, taps,
+        cand + (size_t)b0 * tiles_x * tiles_y * k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const size_t merge_smem = merge_dynamic(k);
   err = og::allow_dynamic_smem(peaks_merge_kernel, MERGE_STATIC, merge_smem);
   if (err != cudaSuccess) return (int)err;
   peaks_merge_kernel<<<B, THREADS, merge_smem, s>>>(
-      cand, grid.x * grid.y * k, k, WB, vals, ys, xs);
+      cand, tiles_x * tiles_y * k, k, WB, vals, ys, xs);
   return (int)cudaGetLastError();
 }
 

@@ -129,27 +129,31 @@ long long og_topk_smem_bytes(int k) {
 }
 
 // x (M, n) f32 on the device -> vals (M, k) f32, inds (M, k) i32.
-// Requires 0 < k <= n and og_topk_smem_bytes(k) <= 227 KB.
+// Requires 0 < k <= n and og_topk_smem_bytes(k) <= 227 KB; any M >= 1.
 int og_topk(const float* x, int M, int n, int k, unsigned long long* cand,
             float* vals, int* inds, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int tiles = og_topk_tiles(n);
-  const dim3 grid(tiles, M);
   const size_t tile_smem = tile_dynamic(k), merge_smem = merge_dynamic(k);
-  cudaError_t err;
-  if (n % 4 == 0 && ((uintptr_t)x & 15u) == 0) {
-    err = og::allow_dynamic_smem(topk_tile_kernel<true>, TILE_STATIC,
-                                 tile_smem);
-    if (err != cudaSuccess) return (int)err;
-    topk_tile_kernel<true><<<grid, THREADS, tile_smem, s>>>(x, n, k, cand);
-  } else {
-    err = og::allow_dynamic_smem(topk_tile_kernel<false>, TILE_STATIC,
-                                 tile_smem);
-    if (err != cudaSuccess) return (int)err;
-    topk_tile_kernel<false><<<grid, THREADS, tile_smem, s>>>(x, n, k, cand);
-  }
-  err = cudaGetLastError();
+  const bool vec = n % 4 == 0 && ((uintptr_t)x & 15u) == 0;
+  cudaError_t err = vec ? og::allow_dynamic_smem(topk_tile_kernel<true>,
+                                                 TILE_STATIC, tile_smem)
+                        : og::allow_dynamic_smem(topk_tile_kernel<false>,
+                                                 TILE_STATIC, tile_smem);
   if (err != cudaSuccess) return (int)err;
+  // rows are grid y, at most og::MAX_GRID_YZ a launch: any M in chunks
+  for (int m0 = 0; m0 < M; m0 += og::MAX_GRID_YZ) {
+    const dim3 grid(tiles, M - m0 < og::MAX_GRID_YZ ? M - m0
+                                                    : og::MAX_GRID_YZ);
+    const float* xc = x + (size_t)m0 * n;
+    unsigned long long* cc = cand + (size_t)m0 * tiles * k;
+    if (vec)
+      topk_tile_kernel<true><<<grid, THREADS, tile_smem, s>>>(xc, n, k, cc);
+    else
+      topk_tile_kernel<false><<<grid, THREADS, tile_smem, s>>>(xc, n, k, cc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   err = og::allow_dynamic_smem(topk_merge_kernel, MERGE_STATIC, merge_smem);
   if (err != cudaSuccess) return (int)err;
   topk_merge_kernel<<<M, THREADS, merge_smem, s>>>(x, n, cand, tiles * k, k,

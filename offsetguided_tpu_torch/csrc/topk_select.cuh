@@ -65,6 +65,10 @@ __host__ __device__ constexpr int win_keys(int k) {
 // block (the wrappers add it to each kernel's dynamic bytes).
 constexpr int SELECT_SHARED_BYTES = 1056;
 
+// The most blocks a launch can have along grid y or z; the launchers loop
+// over chunks of maps this size.
+constexpr int MAX_GRID_YZ = 65535;
+
 __device__ __forceinline__ unsigned long long make_key(float v, uint32_t idx) {
   uint32_t u = __float_as_uint(v);
   const uint32_t mag = u & 0x7fffffffu;

@@ -1,5 +1,11 @@
-"""Eval-time rescale + pad, the inverse transform and COCO annotation
-normalization, on numpy images.
+"""Eval-time rescale + pad, the inverse transform, COCO annotation
+normalization and the train-time augmentation parameters, on numpy images.
+
+The augmentation parameters (`sample_affine_params`, `annotation_jitter`)
+make the same `np.random.RandomState` draws in the same order as the JAX
+package's, and `build_affine_mat` composes the same 3x3 matrix
+center2center @ zero2center @ flip @ scale @ rotate @ center2zero; the
+pixel work of the warp runs on the device (`ops/augment.py`).
 
 Same coordinate conventions as the JAX package's `data/transforms.py`:
 rescaling uses `(target-1)/(orig-1)` scale factors, padding fills
@@ -52,6 +58,71 @@ def normalize_annotations(coco_anns: List[Dict], sigmas,
         if a.get('area', 1e9) <= 32 * 32:
             out[i, :, 2] = 0
     return out
+
+
+def annotation_jitter(anns: np.ndarray, rng: np.random.RandomState,
+                      epsilon: float = 0.5) -> np.ndarray:
+    """+-epsilon/2-uniform coordinate jitter."""
+    anns = anns.copy()
+    anns[:, :, :2] += epsilon * (rng.rand(*anns[:, :, :2].shape) - 0.5) * 2.0
+    return anns
+
+
+def _roi_center(anns, meta):
+    vis = anns[:, :, 2] > 0
+    if not len(anns) or not vis.any():
+        return meta['width_height'].astype(np.float32) // 2
+    xs = anns[:, :, 0][vis]
+    ys = anns[:, :, 1][vis]
+    return np.array([(xs.min() + xs.max()) // 2,
+                     (ys.min() + ys.max()) // 2], dtype=np.float32)
+
+
+def sample_affine_params(aug, rng: np.random.RandomState) -> Dict:
+    """Flip, rotation, scale, stretch and offset drawn from `aug`
+    (an `AugmentationConfig`)."""
+    return dict(
+        flip=bool(rng.rand() < aug.flip_prob),
+        rotate=float((rng.rand() * 2 - 1) * aug.max_rotate),
+        scale=float(aug.min_scale + (aug.max_scale - aug.min_scale) * rng.rand()),
+        x_stretch=float(aug.min_stretch
+                        + (aug.max_stretch - aug.min_stretch) * rng.rand()),
+        y_stretch=float(aug.min_stretch
+                        + (aug.max_stretch - aug.min_stretch) * rng.rand()),
+        x_offset=int((rng.rand() * 2 - 1) * aug.max_translate),
+        y_offset=int((rng.rand() * 2 - 1) * aug.max_translate),
+    )
+
+
+IDENTITY_PARAMS = dict(flip=False, rotate=0.0, scale=1.0, x_stretch=1.0,
+                       y_stretch=1.0, x_offset=0, y_offset=0)
+
+
+def build_affine_mat(params: Dict, roi_center, src_wh, dst_wh,
+                     crop_roi: bool = True):
+    """One 3x3 float64 matrix composing flip/scale/rotate/translate, and
+    the x and y scales: (mat, scale_x, scale_y)."""
+    cangle = math.cos(math.radians(params['rotate']))
+    sangle = math.sin(math.radians(params['rotate']))
+    scale_x = params['x_stretch'] * params['scale']
+    scale_y = params['y_stretch'] * params['scale']
+
+    center = (np.asarray(src_wh, dtype=np.float32) - 1) / 2
+    move2roi = center - roi_center
+    tx = params['x_offset'] + (move2roi[0] * scale_x if crop_roi else 0)
+    ty = params['y_offset'] + (move2roi[1] * scale_y if crop_roi else 0)
+
+    center2zero = np.array([[1, 0, -center[0]], [0, 1, -center[1]], [0, 0, 1]])
+    rotate = np.array([[cangle, sangle, 0], [-sangle, cangle, 0], [0, 0, 1]])
+    scale = np.array([[scale_x, 0, 0], [0, scale_y, 0], [0, 0, 1]])
+    flip = np.array([[-1.0 if params['flip'] else 1.0, 0, 0], [0, 1, 0],
+                     [0, 0, 1]])
+    zero2center = np.array([[1, 0, (dst_wh[0] - 1) / 2],
+                            [0, 1, (dst_wh[1] - 1) / 2], [0, 0, 1]])
+    center2center = np.array([[1, 0, tx], [0, 1, ty], [0, 0, 1]])
+
+    mat = center2center @ zero2center @ flip @ scale @ rotate @ center2zero
+    return mat.astype(np.float64), scale_x, scale_y
 
 
 def resize_bicubic_u8(image: np.ndarray, target_w: int,

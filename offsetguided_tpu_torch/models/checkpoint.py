@@ -1,4 +1,10 @@
-"""Weights carried across from the JAX package or a reference checkpoint.
+"""Training checkpoints, and weights carried across from the JAX package or
+a reference checkpoint.
+
+`save_checkpoint` / `load_checkpoint` / `latest_checkpoint` keep the
+port's own training checkpoints: `torch.save` of the model state dict, the
+optimizer state, the step, the epoch and the loss, one file an epoch
+(`posenet_<epoch>.pt`).
 
 `load_reference_checkpoint` reads a reference `.pth` file into a state dict
 for this package's PoseNet, whose modules keep the reference names.
@@ -11,7 +17,9 @@ tree); convolution kernels go from HWIO to OIHW.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import os
+import re
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,3 +159,106 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     sd = ckpt.get('model_state_dict', ckpt.get('state_dict', ckpt))
     return {k[len('module.'):] if k.startswith('module.') else k: v
             for k, v in sd.items()}
+
+
+def jax_from_state_dict(sd: Dict[str, torch.Tensor], cfg: ModelConfig
+                        ) -> Dict[str, Dict]:
+    """This package's PoseNet state dict -> the JAX `{'params',
+    'batch_stats'}` tree (nested dicts of float32 numpy arrays): the
+    inverse of `state_dict_from_jax`."""
+    cfg = backbone_config(cfg)
+    params: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+
+    def t(key):
+        return sd[key].detach().cpu().float().numpy()
+
+    def hwio(key):
+        return np.ascontiguousarray(np.transpose(t(key), (2, 3, 1, 0)))
+
+    def get_bn(fp, bn_f, tp):
+        params[f'{fp}/{bn_f}/scale'] = t(f'{tp}.weight')
+        params[f'{fp}/{bn_f}/bias'] = t(f'{tp}.bias')
+        stats[f'{fp}/{bn_f}/mean'] = t(f'{tp}.running_mean')
+        stats[f'{fp}/{bn_f}/var'] = t(f'{tp}.running_var')
+
+    bb = 'Hourglass104_0'
+    for flax_path, tp, kind in hourglass_names(cfg):
+        fp = f'{bb}/{flax_path}'
+        if kind == 'residual':
+            params[f'{fp}/Conv_0/kernel'] = hwio(f'{tp}.conv1.weight')
+            get_bn(fp, 'BatchNorm_0', f'{tp}.bn1')
+            params[f'{fp}/Conv_1/kernel'] = hwio(f'{tp}.conv2.weight')
+            get_bn(fp, 'BatchNorm_1', f'{tp}.bn2')
+            if f'{tp}.skip.0.weight' in sd:
+                params[f'{fp}/Conv_2/kernel'] = hwio(f'{tp}.skip.0.weight')
+                get_bn(fp, 'BatchNorm_2', f'{tp}.skip.1')
+        else:
+            seq = kind == 'convbn_seq'
+            conv_t = f'{tp}.0' if seq else f'{tp}.conv'
+            params[f'{fp}/Conv_0/kernel'] = hwio(f'{conv_t}.weight')
+            get_bn(fp, 'BatchNorm_0', f'{tp}.1' if seq else f'{tp}.bn')
+
+    hp = 'PoseHeads_0'
+    for flax_name, tp in head_names(cfg):
+        params[f'{hp}/{flax_name}/kernel'] = hwio(f'{tp}.weight')
+        params[f'{hp}/{flax_name}/bias'] = t(f'{tp}.bias')
+    return {'params': _unflatten(params), 'batch_stats': _unflatten(stats)}
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    out: Dict = {}
+    for key, v in flat.items():
+        node = out
+        *path, leaf = key.split('/')
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _ckpt_path(ckpt_dir: str, epoch: int) -> str:
+    return os.path.join(os.path.abspath(ckpt_dir), f'posenet_{epoch:03d}.pt')
+
+
+def save_checkpoint(ckpt_dir: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer], step: int,
+                    epoch: int, train_loss: float = float('inf')) -> str:
+    """Write `posenet_<epoch>.pt` in `ckpt_dir` (made if missing): the model
+    state dict, the optimizer state, step, epoch and loss. Returns its
+    path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = _ckpt_path(ckpt_dir, epoch)
+    torch.save({'model': model.state_dict(),
+                'optimizer': (optimizer.state_dict() if optimizer is not None
+                              else None),
+                'step': int(step), 'epoch': int(epoch),
+                'train_loss': float(train_loss)}, path)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The checkpoint of the highest epoch in `ckpt_dir`, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    cands = sorted(p for p in os.listdir(ckpt_dir)
+                   if re.match(r'posenet_\d+\.pt$', p))
+    return os.path.join(os.path.abspath(ckpt_dir), cands[-1]) if cands else None
+
+
+def load_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None, *,
+                    drop_optimizer: bool = False,
+                    recount_epoch: bool = False) -> Tuple[int, int, float]:
+    """Restore a `save_checkpoint` file into `model` (strictly) and, unless
+    `drop_optimizer`, into `optimizer`. Returns (step, epoch, train_loss):
+    step 0 with `drop_optimizer`, epoch 0 with `recount_epoch`."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    model.load_state_dict(ckpt['model'], strict=True)
+    step = int(ckpt['step'])
+    if drop_optimizer:
+        step = 0
+    elif optimizer is not None and ckpt.get('optimizer') is not None:
+        optimizer.load_state_dict(ckpt['optimizer'])
+    epoch = 0 if recount_epoch else int(ckpt['epoch'])
+    return step, epoch, float(ckpt['train_loss'])

@@ -2,9 +2,14 @@
 
 `PoseNet(images)` takes NHWC float images and returns the heads' dict of
 per-stack fp32 NHWC prediction maps, like the JAX package's `PoseNet.apply`.
+In train mode the backbone runs under autocast in `cfg.compute_dtype` with
+fp32 parameters and fp32 BatchNorm statistics (the JAX package's
+`compute_dtype='bfloat16'`, `param_dtype='float32'` policy); the heads stay
+fp32.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List
 
@@ -16,7 +21,7 @@ from ..device import resolve_device
 from .heads import PoseHeads
 from .hourglass104 import Hourglass104
 from ..ops.image import normalize_images
-from .layers import fold_batchnorm
+from .layers import BatchNorm2d, fold_batchnorm
 
 
 def backbone_config(cfg: ModelConfig) -> ModelConfig:
@@ -39,18 +44,35 @@ class PoseNet(nn.Module):
         bcfg = backbone_config(cfg)
         self.basenet = basenet_factory(cfg)
         self.headnets = PoseHeads(cfg.heads, bcfg.cnv_dim, bcfg.n_stacks)
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):     # torch convention: 1 - JAX's
+                m.momentum = 1.0 - cfg.bn_momentum
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
+    def autocast(self, device_type: str):
+        """Autocast to the compute dtype where the backbone's parameters
+        are of a wider type (fp32 parameters, bf16 compute); else a no-op
+        context."""
+        dtype = next(self.basenet.parameters()).dtype
+        if self.compute_dtype.itemsize >= dtype.itemsize:
+            return contextlib.nullcontext()
+        return torch.autocast(device_type, dtype=self.compute_dtype)
+
     def forward(self, images: torch.Tensor) -> Dict[str, List]:
-        """(N, H, W, 3) float images -> per-stack fp32 NHWC maps. The
-        backbone runs in the dtype of its parameters."""
+        """(N, H, W, 3) float images -> per-stack fp32 NHWC maps. In eval
+        mode the backbone runs in the dtype of its parameters, in train
+        mode under `autocast`."""
         dtype = next(self.basenet.parameters()).dtype
         x = images.permute(0, 3, 1, 2).to(
             dtype=dtype, memory_format=torch.channels_last)
-        return self.headnets(self.basenet(x))
+        ctx = (self.autocast(x.device.type) if self.training
+               else contextlib.nullcontext())
+        with ctx:
+            feats = self.basenet(x)
+        return self.headnets(feats)
 
     def prepare_inference(self) -> 'PoseNet':
         """Eval mode, BatchNorm folded into the convs, backbone in the
@@ -85,6 +107,24 @@ def init_he_(model: nn.Module, seed: int) -> nn.Module:
             draw(m.running_mean, 0.1)
             m.running_var.copy_(torch.rand(m.running_var.shape,
                                            generator=g) + 0.5)
+    return model
+
+
+@torch.no_grad()
+def init_reference_(model: nn.Module, generator: torch.Generator
+                    ) -> nn.Module:
+    """The JAX trainer's fresh initialization: every conv kernel (heads
+    included) drawn from normal(0, 0.001), zero biases, BatchNorm scale 1
+    and offset 0, running mean 0 and variance 1. Drawn on the CPU from
+    `generator`, so a seed gives the same weights on every device."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           * 0.001)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
     return model
 
 

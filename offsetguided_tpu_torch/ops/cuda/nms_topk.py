@@ -53,8 +53,8 @@ def nms_topk(maps: torch.Tensor, k: int):
     m, h, w = maps.shape
     if not 0 < k <= h * w:
         raise ValueError(f'k={k} outside 1..{h * w} cells')
-    if not 0 < m <= 65535 or h * w >= 2 ** 31:
-        raise ValueError(f'nms_topk kernel grid limits: 0 < M <= 65535, '
+    if m == 0 or h * w >= 2 ** 31:
+        raise ValueError(f'nms_topk kernel limits: M > 0, '
                          f'h*w < 2^31; got {tuple(maps.shape)}')
     need = smem_bytes(h, w, k)
     if need > MAX_SMEM:

@@ -58,6 +58,8 @@ def peaks_topk(maps: torch.Tensor, k: int, method: str = 'bicubic'):
     if maps.dim() != 3:
         raise ValueError(f'maps must be (B, h, w), got {tuple(maps.shape)}')
     b, h, w = maps.shape
+    if b == 0:
+        raise ValueError('peaks kernel: no maps')
     if not 0 < k <= (2 * h) * (2 * w):
         raise ValueError(f'k={k} outside 1..{4 * h * w} blocks')
     if smem_bytes(k) > MAX_SMEM:

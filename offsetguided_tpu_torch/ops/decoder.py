@@ -118,6 +118,8 @@ def sample_limb_maps(maps: torch.Tensor, channels, xs: torch.Tensor,
     (V = C for None, 1 for (L,)). A sample whose footprint touches any
     non-finite cell, even at zero weight, is +inf: the full upsample would
     have spread the sentinel."""
+    if method not in ('bilinear', 'bicubic'):
+        raise ValueError(method)
     n, h, w, C = maps.shape
     L, k = xs.shape[1], xs.shape[2]
     dev = maps.device

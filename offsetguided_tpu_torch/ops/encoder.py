@@ -8,8 +8,9 @@ bounds, grid-center alignment (`i*stride + stride/2 - 0.5`) and
 nearest-wins overlap rules. Unlabeled cells keep the sentinels the losses
 and the decoder expect: +inf offsets and NaN scales. Exact ties in a
 nearest-wins contest go to the first person; the scale map takes the scale
-of the person behind the last improving limb from each joint. The scan form
-and mask downscaling come with the training slice.
+of the person behind the last improving limb from each joint.
+`downscale_mask` brings the input-resolution miss mask to the output grid.
+The JAX package's scan form of the encoder is not ported.
 """
 from __future__ import annotations
 
@@ -160,3 +161,32 @@ def encode_targets(anns, sigmas, skeleton: Sequence, out_h: int, out_w: int,
     per = [_encode_single(a, sigmas, skeleton, out_h, out_w, cfg)
            for a in anns]
     return Targets(*(torch.stack(f) for f in zip(*per)))
+
+
+def downscale_mask(mask_miss: torch.Tensor, cfg: EncoderConfig
+                   ) -> torch.Tensor:
+    """Input-resolution mask (N, H, W), float in [0, 1] or uint8 in
+    [0, 255] -> bool (N, H // stride, W // stride, 1).
+
+    Bicubic downscaling by the integer stride (half-pixel alignment, edge
+    clamp) thresholded at `cfg.mask_miss_threshold`: every output cell
+    taps the same 4 relative input positions, so it is a strided 4-tap
+    cubic filter per axis, summed in tap order."""
+    from .resize import _cubic_kernel
+    x = mask_miss
+    if x.dtype == torch.uint8:
+        x = x.float() / 255.0
+    s = cfg.stride
+    base = int(np.floor((s - 1) / 2.0))
+    frac = (s - 1) / 2.0 - base
+    wts = _cubic_kernel(np.arange(-1, 3) - frac)
+    for axis in (1, 2):
+        n = x.shape[axis]
+        n_out = n // s
+        i0 = torch.arange(n_out, device=x.device) * s + base - 1
+        acc = None
+        for t, wt in enumerate(wts):
+            term = x.index_select(axis, (i0 + t).clamp(0, n - 1)) * float(wt)
+            acc = term if acc is None else acc + term
+        x = acc
+    return (x > cfg.mask_miss_threshold)[..., None]

@@ -131,6 +131,31 @@ def test_sample_limb_maps_poisons_nonfinite_footprint():
     assert torch.all(out[0, 0, 1] == 1.0)
 
 
+def test_sample_limb_maps_refuses_nearest():
+    """Both sides raise on 'nearest', which has no sampled-gather form."""
+    from offsetguided_tpu.ops.decoder import sample_limb_maps as jsample
+    maps = np.random.RandomState(0).rand(1, 6, 6, 2).astype(np.float32)
+    xs = np.array([[[5, 9]]], np.int32)
+    ys = np.array([[[6, 10]]], np.int32)
+    with pytest.raises(ValueError):
+        jsample(jnp.asarray(maps), None, jnp.asarray(xs), jnp.asarray(ys), 4,
+                'nearest')
+    with pytest.raises(ValueError):
+        dec.sample_limb_maps(torch.from_numpy(maps), None,
+                             torch.from_numpy(xs), torch.from_numpy(ys), 4,
+                             'nearest')
+
+
+def test_decode_with_scales_refuses_nearest():
+    """A decode that samples the scale head at resize_mode='nearest' raises
+    on both sides instead of returning misplaced scales."""
+    jpp, jpreds, pp, preds = both(scene_maps(1, 4), resize_mode='nearest')
+    with pytest.raises(ValueError):
+        jpp.decode_packed_limbs(jpreds)
+    with pytest.raises(ValueError):
+        pp.decode_packed_limbs(preds)
+
+
 # decode routes past the fused peaks kernel: (map width, DecoderConfig);
 # flip-test runs on one route of each decode resolution
 ROUTES = {

@@ -129,6 +129,10 @@ def test_port_imports_no_jax():
     files = sorted(PKG.rglob('*.py')) + [PKG.parent / 'chip_smoke.py',
                                          PKG.parent / 'kernel_phases.py']
     assert len(files) > 15
+    names = {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
+    assert {'cli/train.py', 'parallel/train_step.py', 'ops/augment.py',
+            'ops/losses.py', 'data/pipeline.py', 'utils/meters.py',
+            'utils/logging.py'} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []

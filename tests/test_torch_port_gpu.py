@@ -412,6 +412,32 @@ def test_selection_kernels_past_k_512(cuda, kernel, k):
         assert_nms_topk_matches_plain(torch.from_numpy(x).to(cuda), k)
 
 
+@pytest.mark.parametrize('kernel', ['topk', 'peaks', 'nms_topk'])
+def test_selection_kernels_past_65535_maps(cuda, kernel):
+    """65,543 small maps, past the 65,535 blocks of one grid y or z, in one
+    call: each kernel equals its plain version on every map, the last
+    chunk's included."""
+    rng = np.random.RandomState(21)
+    m = 65535 + 8
+    x = torch.from_numpy((np.round(rng.rand(m, 4, 4) * 16) / 16)
+                         .astype(np.float32)).to(cuda)
+    if kernel == 'topk':
+        before = topk.topk.launches
+        v, i = topk.topk(x.reshape(m, 16), 5)
+        pv, pi = topk.topk_plain(x.reshape(m, 16), 5)
+        torch.cuda.synchronize()
+        assert topk.topk.launches == before + 1
+        assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+    elif kernel == 'peaks':
+        v, ys, xs = peaks.peaks_topk(x, 8)
+        pv, pys, pxs = peaks.peaks_topk_plain(x, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(ys, pys) and torch.equal(xs, pxs)
+        assert torch.equal(bits(v), bits(pv))
+    else:
+        assert_nms_topk_matches_plain(x, 5)
+
+
 def test_selection_smem_formulas_match_the_kernels(cuda):
     """Each wrapper's shared-memory formula equals what its C code counts
     from the kernels' own static sizes."""
