@@ -18,7 +18,16 @@ batch 8, bf16):
 - `cli.simulate.main`, the GT oracle, on the 100-image hard annotations,
   upsampled (fused peaks) and stride-resolution decode, against the JAX
   package's recorded APs; and one fixed-height GT batch decoded through
-  the kernels and through the plain versions on the card.
+  the kernels and through the plain versions on the card;
+- `cli.train.main` at full width (512^2, batch 16, Adam, 12 steps) on the
+  device-augmentation route, its checkpoint served, and on the host
+  augmentation route with 4 loader processes and the validation pass;
+  the loader's ms a batch by worker count (`cli.bench_data`);
+- `cli.selfcheck.main` on both augmentation routes (AP >= 0.7 with AP50 =
+  AP75 = 1.0; its evaluation launches the fused peaks and grouping
+  kernels), the trained model's records equal to the plain versions';
+- one fp32 train step of a tiny model, card against CPU, on a seeded
+  batch and on a host-route batch.
 The three selection kernels are also held against their plain versions
 at k = 1024. Each path zeroes the kernels' launch counts just before it
 runs and reads them just after; each must have launched the kernels of its
@@ -374,9 +383,10 @@ def ptxas_lines(report: str):
 def phase_build():
     from offsetguided_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f'[build] {len(_build.SOURCES)} kernels in '
-        f'{time.perf_counter() - t0:.1f} s (parallel nvcc, sm_90a)')
+    _build.build_all(_build.SOURCES + _build.HOST_SOURCES)
+    log(f'[build] {len(_build.SOURCES)} kernels and the host warp in '
+        f'{time.perf_counter() - t0:.1f} s (parallel nvcc for sm_90a, and '
+        f'the host C++ compiler)')
     for name in _build.SOURCES:
         for ln in ptxas_lines(_build.build_logs.get(name, '')):
             log(f'[build] {name}.cu {ln}')
@@ -1270,42 +1280,13 @@ def phase_train(dev, root, skeleton, records):
     if any(read_launches().values()):
         fail(f'training launched a decode kernel: {read_launches()}')
     hist = r['history']
-    if r['steps'] != TRAIN_STEPS or len(hist) != TRAIN_STEPS:
-        fail(f'train: {r["steps"]} steps, {len(hist)} records')
     for h in hist:
         log(f'[train] step {h["step"]}: total {h["total"]:.4f} hmp '
             f'{h["hmp"]:.4f} omp {h["omp"]:.6f} scmp {h["scmp"]:.4f} '
             f'skipped {h["skipped"]:.0f}, host wait {h["host_wait_s"]:.4f} '
             f's, feed {h["feed_ms"]:.2f} ms, forward+backward+optimizer '
             f'{h["step_ms"]:.2f} ms (CUDA events)')
-    bad = [h['step'] for h in hist
-           if not all(np.isfinite(h[k]) for k in ('total', 'hmp', 'bg',
-                                                  'jomp', 'omp', 'scmp'))]
-    if bad:
-        fail(f'train: non-finite losses at steps {bad}')
-    if any(h['skipped'] != 0.0 for h in hist):
-        fail(f'train: skipped steps {[h["step"] for h in hist if h["skipped"]]}')
-    if not hist[-1]['hmp'] < hist[0]['hmp']:
-        fail(f'train: heatmap loss did not fall: step 1 {hist[0]["hmp"]}, '
-             f'step {TRAIN_STEPS} {hist[-1]["hmp"]}')
-    if not (r['checkpoint'] and os.path.isfile(r['checkpoint'])):
-        fail(f'train: no checkpoint ({r["checkpoint"]})')
-    timed = hist[2:]                 # steps 3..12
-    rate = TRAIN_BATCH * len(timed) / (timed[-1]['t'] - hist[1]['t'])
-    gaps = sorted(b['t'] - a['t'] for a, b in zip(hist[1:], hist[2:]))
-    mean = lambda k: sum(h[k] for h in timed) / len(timed)
-    log(f'[train] Hourglass-104 {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, '
-        f'{TRAIN_STEPS} steps{" with --remat" if TRAIN_REMAT else ""}: '
-        f'{rate:.2f} img/s (host clock over steps 3-{TRAIN_STEPS}, with the '
-        f'epoch-end checkpoint writes after steps 4 and 8); '
-        f'{TRAIN_BATCH / gaps[len(gaps) // 2]:.2f} img/s at the median step '
-        f'({gaps[len(gaps) // 2] * 1e3:.1f} ms, host clock); per step '
-        f'feed (H2D + augment + encode) {mean("feed_ms"):.2f} ms, forward + '
-        f'backward + optimizer {mean("step_ms"):.2f} ms (CUDA events), host '
-        f'wait {mean("host_wait_s") * 1e3:.2f} ms; peak memory {peak:.2f} '
-        f'GiB; heatmap loss {hist[0]["hmp"]:.4f} -> {hist[-1]["hmp"]:.4f}; '
-        f'{wall:.1f} s in all; checkpoint {os.path.basename(r["checkpoint"])}'
-        f' | {card_line()}')
+    train_summary('train', hist, wall, peak, r['checkpoint'])
     phase_train_profile(dev, img_dir, ann)
     return {'train_handoff': phase_train_handoff(
         dev, r['checkpoint'], r['model_cfg'], skeleton, records)}
@@ -1466,6 +1447,169 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
     return launches
 
 
+LOADER_WORKERS = 4            # the [train host] run's loader processes
+BENCH_WORKERS = (0, 1, 4, 8)  # the loader's ms a batch, through bench_data
+VAL_IMAGES = 16
+SELFCHECK_BAR = 0.7           # AP, with AP50 = AP75 = 1.0 (cli/selfcheck.py)
+
+
+def train_summary(tag, hist, wall, peak, ckpt):
+    """Checks a full-width run's records (finite losses, no skipped step,
+    a falling heatmap loss, a checkpoint) and prints its img/s over steps
+    3-12 and at the median step, the step split and the host wait."""
+    if len(hist) != TRAIN_STEPS:
+        fail(f'{tag}: {len(hist)} step records, not {TRAIN_STEPS}')
+    bad = [h['step'] for h in hist
+           if not all(np.isfinite(h[k]) for k in ('total', 'hmp', 'bg',
+                                                  'jomp', 'omp', 'scmp'))]
+    if bad:
+        fail(f'{tag}: non-finite losses at steps {bad}')
+    if any(h['skipped'] != 0.0 for h in hist):
+        fail(f'{tag}: skipped steps '
+             f'{[h["step"] for h in hist if h["skipped"]]}')
+    if not hist[-1]['hmp'] < hist[0]['hmp']:
+        fail(f'{tag}: heatmap loss did not fall: step 1 {hist[0]["hmp"]}, '
+             f'step {TRAIN_STEPS} {hist[-1]["hmp"]}')
+    if not (ckpt and os.path.isfile(ckpt)):
+        fail(f'{tag}: no checkpoint ({ckpt})')
+    timed = hist[2:]                 # steps 3..12
+    rate = TRAIN_BATCH * len(timed) / (timed[-1]['t'] - hist[1]['t'])
+    gaps = sorted(b['t'] - a['t'] for a, b in zip(hist[1:], hist[2:]))
+    med = gaps[len(gaps) // 2]
+    mean = lambda k: sum(h[k] for h in timed) / len(timed)
+    log(f'[{tag}] Hourglass-104 {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, '
+        f'{TRAIN_STEPS} steps: {rate:.2f} img/s (host clock over steps '
+        f'3-{TRAIN_STEPS}, with the epoch-end work after steps 4 and 8); '
+        f'{TRAIN_BATCH / med:.2f} img/s at the median step ({med * 1e3:.1f} '
+        f'ms); per step feed {mean("feed_ms"):.2f} ms, forward + backward + '
+        f'optimizer {mean("step_ms"):.2f} ms (CUDA events), host wait '
+        f'{mean("host_wait_s") * 1e3:.2f} ms; peak memory {peak:.2f} GiB; '
+        f'heatmap loss {hist[0]["hmp"]:.4f} -> {hist[-1]["hmp"]:.4f}; '
+        f'{wall:.1f} s in all; checkpoint {os.path.basename(ckpt)} | '
+        f'{card_line()}')
+
+
+def phase_train_host(dev, root):
+    """`cli.train.main` at full width on the host augmentation route (the
+    JAX CLI's default): the 64-image hard set, 512^2, batch 16, Adam, 12
+    steps, 4 loader processes, and the validation pass over 16 .npy
+    hard-set images at each epoch end. Checks finite, falling losses, no
+    skipped step, finite validation losses and a checkpoint; prints img/s,
+    the step split, host wait, peak memory, and the loader's ms a batch by
+    worker count (`cli.bench_data`), against the device-aug loader."""
+    import torch
+    from offsetguided_tpu_torch.cli import bench_data, train
+    from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
+
+    img_dir, ann = make_hard_dataset(os.path.join(root, 'train'),
+                                     n_images=TRAIN_IMAGES, seed=0, ext='npy')
+    val_dir, val_ann = make_hard_dataset(os.path.join(root, 'val'),
+                                         n_images=VAL_IMAGES, seed=1,
+                                         ext='npy')
+    argv = ['--train-image-dir', img_dir, '--train-annotations', ann,
+            '--val-image-dir', val_dir, '--val-annotations', val_ann,
+            '--batch-size', str(TRAIN_BATCH), '--square-length',
+            str(TRAIN_SIZE), '--max-steps', str(TRAIN_STEPS),
+            '--loader-workers', str(LOADER_WORKERS), '--print-freq', '1',
+            '--checkpoint-dir', os.path.join(root, 'checkpoints_host')]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    r = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if any(read_launches().values()):
+        fail(f'training launched a decode kernel: {read_launches()}')
+    for h in r['history']:
+        log(f'[train host] step {h["step"]}: total {h["total"]:.4f} hmp '
+            f'{h["hmp"]:.4f} skipped {h["skipped"]:.0f}, host wait '
+            f'{h["host_wait_s"]:.4f} s, feed {h["feed_ms"]:.2f} ms, forward'
+            f'+backward+optimizer {h["step_ms"]:.2f} ms (CUDA events)')
+    for v in r['val']:
+        log(f'[train host] validation after epoch {v["epoch"]}: loss '
+            f'{v["loss"]:.4f} over {v["batches"]} batch(es) of '
+            f'{VAL_IMAGES} unaugmented images')
+    if not r['val'] or not all(np.isfinite(v['loss']) for v in r['val']):
+        fail(f'train host: validation losses {r["val"]}')
+    train_summary('train host', r['history'], wall, peak, r['checkpoint'])
+    torch.cuda.empty_cache()
+
+    base = ['--image-dir', img_dir, '--annotation-file', ann,
+            '--square-length', str(TRAIN_SIZE), '--batch-size',
+            str(TRAIN_BATCH), '--n-batches', '8']
+    runs = [(['--num-workers', str(n)], f'host route, {n} workers')
+            for n in BENCH_WORKERS]
+    runs.append((['--device-aug'], 'device-aug host path, 1 thread'))
+    for extra, what in runs:
+        rec = bench_data.main(base + extra)
+        log(f'[train host] loader ({what}): {rec["loader_ms"]:.1f} ms a '
+            f'batch of {TRAIN_BATCH} waited, {rec["interval_ms"]:.1f} ms a '
+            f'batch pipelined ({rec["samples_per_s"]:.1f} samples/s), feed '
+            f'{rec["feed_ms"]:.2f} ms (CUDA events), first batch '
+            f'{rec["first_batch_s"]:.2f} s')
+
+
+def phase_selfcheck(dev, root):
+    """The port's self-check on the card, seed 0 and the JAX defaults, on
+    the host route and then on the device-aug route: AP >= 0.7 and AP50 =
+    AP75 = 1.0 on each; the evaluation's launches are each route's path
+    (both must launch the fused peaks and grouping kernels). Then the
+    host-route model served through `run_images` with the kernels and with
+    their plain versions: identical record sets.
+    Returns {'selfcheck_host': launches, 'selfcheck_device_aug': ...}."""
+    import torch
+    from offsetguided_tpu_torch.cli import selfcheck
+    from offsetguided_tpu_torch.data.coco import CocoJson
+    from offsetguided_tpu_torch.device import exact_fp32
+    from offsetguided_tpu_torch.eval.harness import run_images
+
+    launches, host = {}, None
+    for route in ('host', 'device_aug'):
+        path = f'selfcheck_{route}'
+        argv = ['--seed', '0', '--min-ap', str(SELFCHECK_BAR),
+                '--work-dir', os.path.join(root, path)]
+        reset_launches()
+        r = selfcheck.main(argv + (['--device-aug']
+                                   if route == 'device_aug' else []))
+        torch.cuda.synchronize()
+        launches[path] = read_launches()
+        st = r['stats']
+        log(f'[selfcheck] {route} route: {r["steps"]} steps in '
+            f'{r["train_s"]:.1f} s (training loop, host clock), AP '
+            f'{st["AP"]:.4f}, AP50 {st["AP50"]:.4f}, AP75 {st["AP75"]:.4f}, '
+            f'AR {st["AR"]:.4f}; losses {r["history"]}; kernel launches '
+            f'{launches[path]} | {card_line()}')
+        check_launches(path, launches[path], ('peaks', 'grouping'),
+                       never=('topk', 'nms_topk'))
+        if not (st['AP'] >= SELFCHECK_BAR and st['AP50'] == 1.0
+                and st['AP75'] == 1.0):
+            fail(f'selfcheck ({route}): AP {st["AP"]:.4f}, AP50 '
+                 f'{st["AP50"]:.4f}, AP75 {st["AP75"]:.4f}; the bar is '
+                 f'AP >= {SELFCHECK_BAR} with AP50 = AP75 = 1.0')
+        if route == 'host':
+            host = r
+
+    coco = CocoJson(host['annotations'])
+    args = (host['model'], host['postprocessor'], coco, host['image_dir'],
+            host['eval_cfg'])
+    with exact_fp32():
+        ours = run_images(*args)
+        with plain_kernels():
+            ref = run_images(*args)
+
+    def recs(results):
+        return sorted((r['image_id'], tuple(np.round(r['keypoints'], 2)),
+                       round(r['score'], 4)) for r in results)
+    if recs(ours) != recs(ref):
+        fail('selfcheck: the kernels\' records differ from the plain '
+             'versions\' on the trained model')
+    log(f'[selfcheck] host-route model served through run_images: kernel '
+        f'and plain records identical ({len(ours)} records)')
+    return launches
+
+
 def tiny_train_batch():
     """Seeded uint8 images, annotations and mask of the one-step check."""
     rng = np.random.RandomState(2)
@@ -1480,43 +1624,83 @@ def tiny_train_batch():
     return images, anns, mask
 
 
-def phase_train_one_step(dev):
-    """One fp32 SGD step (TF32 off) of the tiny model on the card and on
-    the CPU, from the same weights and batch: losses, parameters (as
-    gradients: the step is lr * gradient) and BatchNorm statistics within
-    the CPU tests' tolerances."""
+def tiny_feed(where):
+    """The one-step check's batch on `where`: targets encoded there."""
     import torch
+    from offsetguided_tpu_torch.config.defaults import (EncoderConfig,
+                                                        SkeletonConfig)
+    from offsetguided_tpu_torch.ops.encoder import encode_targets
+    sk = SkeletonConfig()
+    images, anns, mask = tiny_train_batch()
+    t = encode_targets(torch.from_numpy(anns).to(where), sk.sigmas,
+                       sk.skeleton, 16, 16, EncoderConfig(max_persons=4))
+    return (torch.from_numpy(images).to(where), t,
+            torch.from_numpy(mask).to(where))
+
+
+def host_route_feed(root):
+    """A host-route batch of two 128^2 samples (the port's host warp at
+    scale 0.2-0.3, so the whole scene is in view, flipped, rotated, grayed
+    and tinted by chance) from 2 .npy hard-set images, as a function of
+    the device it is fed to (`cli/train.py::device_batch`: H2D, GT
+    encoding and mask downscaling there)."""
+    from offsetguided_tpu_torch.cli.train import device_batch
     from offsetguided_tpu_torch.config.defaults import (
-        EncoderConfig, LossConfig, ModelConfig, SkeletonConfig, TrainConfig)
-    from offsetguided_tpu_torch.device import disable_tf32
+        AugmentationConfig, EncoderConfig, SkeletonConfig)
+    from offsetguided_tpu_torch.data import pipeline
+    from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
+    img_dir, ann = make_hard_dataset(os.path.join(root, 'one_step'),
+                                     n_images=2, seed=4, ext='npy')
+    ds = pipeline.CocoKeypoints(
+        img_dir, ann, aug=AugmentationConfig(
+            square_length=128, min_scale=0.2, max_scale=0.3,
+            max_translate=10, gray_prob=0.5, color_tint_prob=0.5),
+        square_length=128, max_persons=8)
+    batch = pipeline._make_batch(ds, [0, 1], pipeline._batch_rng(0, 0, 0), 0)
+
+    def feed(where):
+        import torch
+        return device_batch(batch, ds, torch.device(where),
+                            EncoderConfig(max_persons=8), SkeletonConfig(),
+                            128)
+    return feed
+
+
+def train_one_step_errors(dev, feed, dtype: str = 'float32'):
+    """One SGD step (TF32 off) of the tiny model in `dtype` on the card and
+    on the CPU, from the same weights, on `feed(device)`'s batch: the
+    largest relative loss error, gradient error (|diff| - 1e-3 |g|, over
+    the largest gradient), BatchNorm statistics error, and the skipped
+    flags."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import (LossConfig,
+                                                        ModelConfig,
+                                                        TrainConfig)
+    from offsetguided_tpu_torch.device import exact_fp32
     from offsetguided_tpu_torch.models import PoseNet
     from offsetguided_tpu_torch.models.network import init_reference_
-    from offsetguided_tpu_torch.ops.encoder import encode_targets
     from offsetguided_tpu_torch.parallel.train_step import (TrainStep,
                                                             make_optimizer)
 
-    disable_tf32()
-    sk = SkeletonConfig()
-    images, anns, mask = tiny_train_batch()
-    cfg = ModelConfig(**TINY_TRAIN)
+    cfg = ModelConfig(**dict(TINY_TRAIN, compute_dtype=dtype))
     init = init_reference_(PoseNet(cfg), torch.Generator().manual_seed(0))
     lr = 1e-3
     out = {}
-    for where in ('cpu', dev):
-        net = PoseNet(cfg)
-        net.load_state_dict(init.state_dict())
-        net = net.to(where)
-        t = encode_targets(torch.from_numpy(anns).to(where), sk.sigmas,
-                           sk.skeleton, 16, 16, EncoderConfig(max_persons=4))
-        step = TrainStep(net, make_optimizer(
-            TrainConfig(optimizer='sgd', learning_rate=lr), net.parameters()),
-            LossConfig(stack_weights=(1.0,)))
-        m = step(torch.from_numpy(images).to(where), t,
-                 torch.from_numpy(mask).to(where))
-        out[str(where)] = ({k: float(v) for k, v in m.items()},
-                           {k: v.detach().cpu().double()
-                            for k, v in net.state_dict().items()})
-    torch.backends.cudnn.allow_tf32 = True
+    with exact_fp32():
+        for where in ('cpu', dev):
+            net = PoseNet(cfg)
+            net.load_state_dict(init.state_dict())
+            net = net.to(where, getattr(torch, dtype))
+            step = TrainStep(net, make_optimizer(
+                TrainConfig(optimizer='sgd', learning_rate=lr),
+                net.parameters()), LossConfig(stack_weights=(1.0,)))
+            images, targets, mask = feed(where)
+            targets = type(targets)(*[t.to(getattr(torch, dtype))
+                                      for t in targets])
+            m = step(images, targets, mask)
+            out[str(where)] = ({k: float(v) for k, v in m.items()},
+                               {k: v.detach().cpu().double()
+                                for k, v in net.state_dict().items()})
     (mc, sc), (mg, sg) = out['cpu'], out[str(dev)]
     loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
     p0 = {k: v.double() for k, v in init.state_dict().items()}
@@ -1527,14 +1711,58 @@ def phase_train_one_step(dev):
                 for a, b in grads.values()) / gmax
     bn_err = max(float((sg[k] - sc[k]).abs().max()) for k in sc
                  if 'running' in k)
-    log(f'[train one-step] fp32 SGD step of the tiny model, card vs CPU: '
-        f'losses max rel err {loss_err:.3g}, gradients max (|diff| - 1e-3 '
-        f'|g|) {g_err:.3g} of the largest gradient {gmax:.3g}, BN '
-        f'statistics max abs err {bn_err:.3g}')
-    if not (loss_err <= 1e-4 and g_err <= 1e-4 and bn_err <= 1e-5
-            and mc['skipped'] == mg['skipped'] == 0.0):
-        fail('train one-step: card and CPU differ past the CPU tests\' '
-             'tolerances')
+    return dict(loss=loss_err, grad=g_err, grad_max=gmax, bn=bn_err,
+                skipped=(mc['skipped'], mg['skipped']))
+
+
+def one_step_ok(e) -> bool:
+    """The CPU tests' tolerances: losses 1e-4 relative, gradients 1e-3
+    relative + 1e-4 of the largest, BatchNorm statistics 1e-5."""
+    return (e['loss'] <= 1e-4 and e['grad'] <= 1e-4 and e['bn'] <= 1e-5
+            and e['skipped'] == (0.0, 0.0))
+
+
+def host_route_targets_error(dev, feed) -> float:
+    """The largest difference between the host-route batch's targets
+    encoded on the card and on the CPU (inf where their +inf / NaN
+    sentinels fall differently)."""
+    import torch
+    _, tc, mc = feed('cpu')
+    _, tg, mg = feed(dev)
+    err = 0.0 if torch.equal(mc, mg.cpu()) else float('inf')
+    for x, y in zip(tc, tg):
+        y = y.cpu()
+        fin = torch.isfinite(x)
+        if not torch.equal(fin, torch.isfinite(y)):
+            return float('inf')
+        d = (x - y).abs()[fin]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def phase_train_one_step(dev, root):
+    """The one-step check, card vs CPU: an fp32 step on the tiny seeded
+    batch; on a host-route batch (warped, grayed and tinted on the host,
+    encoded on each device) the targets within 1e-6 and an fp64 step. (In
+    fp32 that batch meets a near-tie of rounding on the card: one deep
+    conv's gradient moves by 0.75 % of the largest while the card's and
+    the CPU's fp64 steps agree to 7e-8; ROADMAP Queue 3.)"""
+    feed = host_route_feed(root)
+    t_err = host_route_targets_error(dev, feed)
+    log(f'[train one-step] host-route batch: targets encoded on the card '
+        f'vs the CPU, max abs err {t_err:.3g}')
+    if not t_err <= 1e-6:
+        fail('train one-step: host-route targets differ card vs CPU')
+    for what, fd, dtype in (('tiny batch', tiny_feed, 'float32'),
+                            ('host-route batch', feed, 'float64')):
+        e = train_one_step_errors(dev, fd, dtype)
+        log(f'[train one-step] {what}: {dtype} SGD step of the tiny model, '
+            f'card vs CPU: losses max rel err {e["loss"]:.3g}, gradients max '
+            f'(|diff| - 1e-3 |g|) {e["grad"]:.3g} of the largest gradient '
+            f'{e["grad_max"]:.3g}, BN statistics max abs err {e["bn"]:.3g}')
+        if not one_step_ok(e):
+            fail(f'train one-step ({what}): card and CPU differ past the '
+                 f'CPU tests\' tolerances')
 
 
 def main() -> int:
@@ -1569,7 +1797,9 @@ def main() -> int:
         launches.update(phase_oracle(dev, root))
         torch.cuda.empty_cache()
         launches.update(phase_train(dev, root, skeleton, records))
-    phase_train_one_step(dev)
+        phase_train_host(dev, root)
+        launches.update(phase_selfcheck(dev, root))
+        phase_train_one_step(dev, root)
 
     kernels = []
     for key in KERNELS:

@@ -1,24 +1,28 @@
 #!/usr/bin/env python
-"""Training on one device, on the device-augmentation route.
+"""Training on one device.
 
 Port of the JAX package's `cli/train.py` with its flag names and defaults,
-on `--device` (the card unless told otherwise). Each step: the host
-thread reads images, renders miss masks and samples augmentation
-parameters (`data/pipeline.py`); the batch goes to the device (pinned,
-non-blocking); there the warp, photometric pass and annotation transform
-(`ops/augment.py`), GT encoding and mask downscaling (`ops/encoder.py`)
-make the targets; then the train step (`parallel/train_step.py`): forward
-in train mode (bf16 autocast backbone, fp32 parameters and BatchNorm
-statistics), losses, backward, the explosion guard, Adam. Checkpoints at
-epoch ends (`--save-every`) and at `--max-steps`.
+on `--device` (the card unless told otherwise). Each step: the loader (one
+background thread, or `--loader-workers` processes writing into shared
+memory) reads images, renders miss masks and, by default, augments on the
+host: annotation jitter, the affine warp of image and mask, gray and tint,
+with the values of the JAX package's cv2 calls (`data/pixels.py`, the
+warp in C++ through ctypes). With `--device-aug` the host only samples
+the parameters, and the warp, photometric pass and annotation transform
+run on the device (`ops/augment.py`). The batch goes to the device
+(pinned, non-blocking); GT encoding and mask downscaling
+(`ops/encoder.py`) make the targets there; then the train step
+(`parallel/train_step.py`): forward in train mode (bf16 autocast
+backbone, fp32 parameters and BatchNorm statistics), losses, backward,
+the explosion guard, Adam. With `--val-image-dir` / `--val-annotations`,
+each epoch end runs the validation losses over the unaugmented samples.
+Checkpoints at epoch ends (`--save-every`) and at `--max-steps`.
 
-Not ported, refused with a message: the host augmentation route (no
-`--device-aug`) and with it the `--val-*` validation pass, loader worker
-processes (`--loader-workers > 0`), `--distributed`, `--freeze`,
+Not ported, refused with a message: `--distributed`, `--freeze`,
 `--drop-layers`, `--basenet hourglass4stage`, `--dataset crowdpose` and
 `--warp-impl tiled` (the TPU's banded-matmul warp).
 
-    python -m offsetguided_tpu_torch.cli.train --device-aug \\
+    python -m offsetguided_tpu_torch.cli.train \\
         --train-image-dir images --train-annotations ann.json
 """
 from __future__ import annotations
@@ -29,7 +33,6 @@ import time
 from typing import Dict
 
 import numpy as np
-import torch
 
 
 def cli(argv=None):
@@ -49,8 +52,10 @@ def cli(argv=None):
                         'gather (tiled, the TPU banded-matmul form, is not '
                         'ported)')
     g.add_argument('--device-aug', action='store_true',
-                   help='warp + photometric augmentation on the device (the '
-                        'only route ported; required)')
+                   help='warp + photometric augmentation on the device '
+                        '(ops/augment.py); the host keeps image read, mask '
+                        'render and parameter sampling. Default: augment '
+                        'on the host')
     g.add_argument('--raw-canvas', type=int, default=640,
                    help='device-aug: fixed raw-image canvas side (largest '
                         'source image side; COCO is 640)')
@@ -146,7 +151,8 @@ def cli(argv=None):
     g.add_argument('--num-processes', type=int, default=None)
     g.add_argument('--process-id', type=int, default=None)
     g.add_argument('--seed', type=int, default=0)
-    g.add_argument('--loader-workers', type=int, default=0)
+    g.add_argument('--loader-workers', type=int, default=0,
+                   help='loader processes (0 = one background thread)')
     g.add_argument('--debug-tiny-model', action='store_true',
                    help='swap in a narrow backbone (CI smoke tests)')
     g.add_argument('--max-steps', type=int, default=None,
@@ -154,13 +160,6 @@ def cli(argv=None):
     args = p.parse_args(argv)
 
     refused = [
-        (not args.device_aug, '--device-aug is required: the host '
-         'augmentation route (cv2 warp on the host) is not ported'),
-        (bool(args.val_image_dir or args.val_annotations), '--val-* '
-         'validation needs unaugmented host samples (the host route), which '
-         'is not ported'),
-        (args.loader_workers > 0, '--loader-workers > 0: worker processes '
-         'are not ported (0 = one background thread)'),
         (args.distributed, '--distributed: multi-process training is not '
          'ported'),
         (args.freeze is not None, '--freeze is not ported'),
@@ -197,13 +196,49 @@ def model_config(args, heads):
                        heads=heads, remat=args.remat, **kw)
 
 
+def device_batch(batch, dataset, dev, enc_cfg, skeleton,
+                 square_length: int):
+    """Host batch -> (uint8 images, targets, bool mask) on `dev`, inputs
+    pinned and copied without blocking on a CUDA device. A device-aug
+    batch (it carries `aug_mat`) is warped there first; a host-route batch
+    arrives warped, its mask uint8 in [0, 255]. GT encoding and the mask
+    downscale run on the device on both routes."""
+    import torch
+    from ..ops.augment import augment_batch_dict
+    from ..ops.encoder import downscale_mask, encode_targets
+    keys = (dataset.sample_spec() if 'aug_mat' in batch
+            else ('image', 'anns', 'mask_miss'))
+    dev_b = {}
+    for k in keys:
+        t = torch.from_numpy(batch[k])
+        dev_b[k] = (t.pin_memory().to(dev, non_blocking=True)
+                    if dev.type == 'cuda' else t)
+    out_hw = square_length // enc_cfg.stride
+    with torch.no_grad():
+        if 'aug_mat' in dev_b:
+            imgs, mask, anns = augment_batch_dict(
+                dev_b, square_length, dataset.left_index,
+                dataset.right_index)
+        else:
+            imgs, mask, anns = (dev_b['image'], dev_b['mask_miss'],
+                                dev_b['anns'])
+        targets = encode_targets(anns, np.asarray(skeleton.sigmas),
+                                 skeleton.skeleton, out_hw, out_hw, enc_cfg)
+        return imgs, targets, downscale_mask(mask, enc_cfg)
+
+
 def main(argv=None) -> Dict:
     """Trains; returns a summary: `steps`, `checkpoint` (the last path
     written), `history` (one record per printed step: the losses,
     `skipped`, `host_wait_s`, `feed_s`, `imgs_per_sec`, the host clock `t`
     after the step finished and, on a CUDA device, `feed_ms` and `step_ms`
-    by CUDA events over the printed interval), `device` and `model_cfg`."""
+    by CUDA events over the printed interval), `val` (one record per
+    validation pass: `epoch`, `loss`, `batches`), `device` and
+    `model_cfg`."""
     args = cli(argv)
+    # torch is imported here, not at the top: loader processes re-import
+    # this module when it is the main one, and need no torch
+    import torch
     from ..config.defaults import (AugmentationConfig, EncoderConfig,
                                    HeadsConfig, LossConfig, SkeletonConfig,
                                    TrainConfig)
@@ -213,10 +248,8 @@ def main(argv=None) -> Dict:
     from ..models import checkpoint as ckpt
     from ..models.checkpoint import load_reference_checkpoint
     from ..models.network import init_reference_
-    from ..ops.augment import augment_batch_dict
-    from ..ops.encoder import downscale_mask, encode_targets
-    from ..parallel.train_step import (TrainStep, make_optimizer,
-                                       step_lr_schedule)
+    from ..parallel.train_step import (TrainStep, make_eval_step,
+                                       make_optimizer, step_lr_schedule)
     from ..utils.logging import configure, log_record
     from ..utils.meters import AverageMeter, Throughput
 
@@ -262,7 +295,7 @@ def main(argv=None) -> Dict:
         args.train_image_dir, args.train_annotations, skeleton=skeleton,
         aug=aug_cfg, square_length=args.square_length,
         max_persons=args.max_persons, n_images=args.n_images,
-        device_aug=True, raw_canvas=args.raw_canvas)
+        device_aug=args.device_aug, raw_canvas=args.raw_canvas)
     steps_per_epoch = max(len(dataset) // args.batch_size, 1)
     logger.info('dataset: %d images, %d steps/epoch, device %s',
                 len(dataset), steps_per_epoch, dev)
@@ -291,23 +324,32 @@ def main(argv=None) -> Dict:
                            step_lr_schedule(train_cfg, steps_per_epoch),
                            train_cfg.loss_explosion_guard, args.max_grad_norm)
     train_step.step = start_step
-    out_hw = args.square_length // enc_cfg.stride
-    sigmas = np.asarray(skeleton.sigmas)
 
-    def device_batch(batch):
-        """Host batch -> (uint8 images, targets, bool mask) on the device."""
-        dev_b = {}
-        for k in dataset.sample_spec():
-            t = torch.from_numpy(batch[k])
-            dev_b[k] = (t.pin_memory().to(dev, non_blocking=True) if cuda
-                        else t)
-        with torch.no_grad():
-            imgs, mask01, anns = augment_batch_dict(
-                dev_b, args.square_length, dataset.left_index,
-                dataset.right_index)
-            targets = encode_targets(anns, sigmas, skeleton.skeleton,
-                                     out_hw, out_hw, enc_cfg)
-            return imgs, targets, downscale_mask(mask01, enc_cfg)
+    def feed(batch):
+        return device_batch(batch, dataset, dev, enc_cfg, skeleton,
+                            args.square_length)
+
+    val_dataset = None
+    if args.val_image_dir and args.val_annotations:
+        val_dataset = CocoKeypoints(
+            args.val_image_dir, args.val_annotations, skeleton=skeleton,
+            aug=None, square_length=args.square_length,
+            max_persons=args.max_persons)
+        eval_step = make_eval_step(model, loss_cfg)
+    val_history = []
+
+    def run_validation(epoch):
+        """Mean validation loss over the unaugmented samples, logged as the
+        `val` record."""
+        vmeter = AverageMeter()
+        for vb in batch_iterator(val_dataset, args.batch_size, seed=1,
+                                 shuffle=False, epochs=1):
+            losses = eval_step(*feed(vb))
+            vmeter.update(float(losses['total']))
+        log_record(logger, 'val', type='val', epoch=epoch, loss=vmeter.avg)
+        val_history.append(dict(epoch=epoch, loss=vmeter.avg,
+                                batches=vmeter.count))
+        return vmeter.avg
 
     def event():
         if not cuda:
@@ -340,7 +382,7 @@ def main(argv=None) -> Dict:
                 break
             t1 = time.perf_counter()
             e0 = event()
-            images, targets, mask = device_batch(batch)
+            images, targets, mask = feed(batch)
             e1 = event()
             t2 = time.perf_counter()
             host_wait += t1 - t0
@@ -378,6 +420,9 @@ def main(argv=None) -> Dict:
                 break
             if step % steps_per_epoch == 0:
                 epoch += 1
+                if val_dataset is not None:
+                    logger.info('epoch %d val loss %.4f', epoch,
+                                run_validation(epoch))
                 if (epoch - start_epoch) % args.save_every == 0:
                     path = ckpt.save_checkpoint(args.checkpoint_dir, model,
                                                 optimizer, train_step.step,
@@ -386,8 +431,8 @@ def main(argv=None) -> Dict:
                 meter.reset()
     finally:
         it.close()
-    return dict(steps=step, checkpoint=path, history=history, device=str(dev),
-                model_cfg=model_cfg)
+    return dict(steps=step, checkpoint=path, history=history,
+                val=val_history, device=str(dev), model_cfg=model_cfg)
 
 
 if __name__ == '__main__':

@@ -1,14 +1,21 @@
-"""Training dataset + batching on the host, for the device-augmentation route.
+"""Training and validation datasets + batching on the host.
 
-The host reads the image, renders the miss mask, samples every
-augmentation parameter and pads annotations to a fixed
-`(max_persons, J, 4)` array; the warp, the photometric pass, GT encoding
-and mask downscaling run batched on the device (`ops/augment.py`,
-`ops/encoder.py`). A background thread prefetches batches.
-
-Port of the JAX package's `data/pipeline.py` on its `device_aug` route.
-The host route (warping on the host with cv2) and the worker processes
-(`num_workers > 0`) are not ported.
+Port of the JAX package's `data/pipeline.py`, both routes:
+- host augmentation (the default): the host reads the image, renders the
+  miss mask, jitters the annotations, warps image and mask to the
+  (S, S) square and applies the photometric pass (`data/transforms.py`,
+  the values of the JAX package's cv2 calls), and pads annotations to a
+  fixed `(max_persons, J, 4)` array; with `aug=None` the warp is the
+  identity placement (the validation samples);
+- device augmentation (`device_aug=True`): the host samples every
+  augmentation parameter and ships the raw image on a fixed canvas; the
+  warp and the photometric pass run batched on the device
+  (`ops/augment.py`).
+GT encoding and mask downscaling run on the device on both routes
+(`ops/encoder.py`). Batches come from one background thread
+(`num_workers=0`) or from worker processes that write them into shared
+memory; a batch's randomness depends only on (seed, epoch, batch), so its
+contents are the same for any worker count.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ import logging
 import os
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+import time
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -38,12 +46,16 @@ def _resize_nearest(mask: np.ndarray, target_w: int,
 
 
 class CocoKeypoints:
-    """COCO keypoint training dataset on the device-augmentation route.
+    """COCO keypoint dataset.
 
-    `get(i, rng)` returns a dict of fixed-shape arrays (`sample_spec`): the
-    raw image on a (raw_canvas, raw_canvas, 3) uint8 canvas (top-left
-    anchored), its mask_miss (0/255 uint8, 255 outside the image), the
-    padded annotations, the host-sampled augmentation parameters, and meta.
+    `get(i, rng)` returns a dict of fixed-shape arrays (`sample_spec`) and
+    meta. Host route: the warped (S, S, 3) uint8 image, its (S, S) uint8
+    mask_miss in [0, 255] (cubic-warped, border 255) and the padded
+    annotations. Device-aug route: the raw image on a (raw_canvas,
+    raw_canvas, 3) uint8 canvas (top-left anchored), its mask_miss (0/255
+    uint8, 255 outside the image), the padded annotations and the
+    host-sampled augmentation parameters. The dataset holds no tensor, so
+    it pickles to spawned worker processes.
     """
 
     def __init__(self, image_dir: str, ann_file: str, *,
@@ -71,6 +83,9 @@ class CocoKeypoints:
         if n_images:
             self.ids = self.ids[:n_images]
         self._warned_canvas = False
+        if not device_aug:      # a missing compiler fails here, not later
+            from ..ops.cuda import _build
+            _build.library('host_warp')
 
     def __len__(self):
         return len(self.ids)
@@ -83,20 +98,25 @@ class CocoKeypoints:
         return out
 
     def sample_spec(self) -> Dict:
-        """Per-sample array layout: key -> (shape, dtype)."""
+        """Per-sample array layout: key -> (shape, dtype). Drives batch
+        stacking and the shared-memory transport (`_ShmSlots`)."""
         J = self.skeleton.n_keypoints
-        S = self.raw_canvas
-        return {
+        S = self.raw_canvas if self.device_aug else self.square
+        spec = {
             'image': ((S, S, 3), np.uint8),
             'mask_miss': ((S, S), np.uint8),
             'anns': ((self.max_persons, J, 4), np.float32),
-            'aug_mat': ((3, 3), np.float32),       # src->dst forward
-            'aug_mat_inv': ((2, 3), np.float32),   # dst->src (sampling)
-            'aug_scale_xy': ((2,), np.float32),
-            'aug_flags': ((2,), np.float32),       # [flip, gray]
-            'aug_tint': ((4,), np.float32),        # [on, dh, ds, dv]
-            'valid_hw': ((2,), np.int32),
         }
+        if self.device_aug:
+            spec.update({
+                'aug_mat': ((3, 3), np.float32),       # src->dst forward
+                'aug_mat_inv': ((2, 3), np.float32),   # dst->src (sampling)
+                'aug_scale_xy': ((2,), np.float32),
+                'aug_flags': ((2,), np.float32),       # [flip, gray]
+                'aug_tint': ((4,), np.float32),        # [on, dh, ds, dv]
+                'valid_hw': ((2,), np.int32),
+            })
+        return spec
 
     def _get_device_aug(self, image, anns, meta, mask_miss,
                         rng: np.random.RandomState) -> Dict:
@@ -163,12 +183,34 @@ class CocoKeypoints:
             'meta': meta,
         }
 
+    def _get_host(self, image, anns, meta, mask_miss,
+                  rng: np.random.RandomState) -> Dict:
+        """The sample warped to the (S, S) square on the host: jitter,
+        affine, gray, tint, drawn from `rng` in the JAX package's order;
+        the identity placement when `aug` is None."""
+        aug = self.aug
+        if aug is not None:
+            if rng.rand() < aug.annotation_jitter_prob:
+                anns = T.annotation_jitter(anns, rng)
+            params = T.sample_affine_params(aug, rng)
+        else:
+            params = T.IDENTITY_PARAMS
+        image, anns, meta, mask_miss = T.warp_affine(
+            image, anns, meta, mask_miss, params, self.square,
+            self.left_index, self.right_index)
+        if aug is not None:
+            if rng.rand() < aug.gray_prob:
+                image = T.to_gray(image)
+            if rng.rand() < aug.color_tint_prob:
+                image = T.color_tint(image, rng)
+        return {
+            'image': np.ascontiguousarray(image, dtype=np.uint8),
+            'anns': self._pad_persons(anns),
+            'mask_miss': mask_miss.astype(np.uint8),
+            'meta': meta,
+        }
+
     def get(self, index: int, rng: np.random.RandomState) -> Dict:
-        if not self.device_aug:
-            raise NotImplementedError(
-                'the host augmentation route (the warp on the host, and the '
-                'unaugmented validation samples) is not ported; construct '
-                'the dataset with device_aug=True')
         img_id = self.ids[index]
         info = self.coco.image_info(img_id)
         path = os.path.join(self.image_dir, info['file_name'])
@@ -183,7 +225,9 @@ class CocoKeypoints:
         meta = T.make_meta(info['width'], info['height'],
                            self.skeleton.n_keypoints)
         meta['image_id'] = img_id
-        return self._get_device_aug(image, anns, meta, mask_miss, rng)
+        if self.device_aug:
+            return self._get_device_aug(image, anns, meta, mask_miss, rng)
+        return self._get_host(image, anns, meta, mask_miss, rng)
 
 
 def _batch_rng(seed: int, epoch: int, batch_index: int) -> np.random.RandomState:
@@ -219,18 +263,202 @@ def _batch_plan(dataset, batch_size, seed, shuffle, drop_last, epochs):
         epoch += 1
 
 
+class _ShmSlots:
+    """Fixed-size shared-memory slots, one batch each, laid out by the
+    dataset's `sample_spec()`: a worker writes a batch into its slot once
+    and the parent copies it out once; only the indices and metas travel
+    through a queue. The parent creates (and unlinks) the segments; the
+    workers attach to them."""
+
+    def __init__(self, batch_size: int, sample_spec: Dict, n_slots: int):
+        self.keys = list(sample_spec.keys())
+        self.shapes = {k: (batch_size,) + tuple(shape)
+                       for k, (shape, _) in sample_spec.items()}
+        self.dtypes = {k: dt for k, (_, dt) in sample_spec.items()}
+        self.offsets, off = {}, 0
+        for k in self.keys:
+            self.offsets[k] = off
+            off += int(np.prod(self.shapes[k])) * np.dtype(
+                self.dtypes[k]).itemsize
+        self.nbytes = off
+        self.n_slots = n_slots
+        self._segs = None
+
+    def __getstate__(self):
+        # spawn pickles this to the workers: the layout only, never the
+        # parent's open segments
+        return {k: v for k, v in self.__dict__.items() if k != '_segs'}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._segs = None
+
+    def create(self) -> List[str]:
+        from multiprocessing import shared_memory
+        self._segs = [shared_memory.SharedMemory(create=True,
+                                                 size=self.nbytes)
+                      for _ in range(self.n_slots)]
+        return [seg.name for seg in self._segs]
+
+    def attach(self, names) -> None:
+        from multiprocessing import resource_tracker, shared_memory
+        # Python < 3.13 registers an attachment with the resource tracker
+        # too (bpo-39959), and spawned children share the parent's tracker:
+        # unregistering afterwards would drop the parent's own registration
+        # and its unlink() would then fail inside the tracker. So the
+        # registration is suppressed instead (3.13 has track=False).
+        orig = resource_tracker.register
+        resource_tracker.register = (
+            lambda name, rtype: None if rtype == 'shared_memory'
+            else orig(name, rtype))
+        try:
+            self._segs = [shared_memory.SharedMemory(name=n) for n in names]
+        finally:
+            resource_tracker.register = orig
+
+    def views(self, slot: int) -> Dict[str, np.ndarray]:
+        buf = self._segs[slot].buf
+        return {k: np.ndarray(self.shapes[k], self.dtypes[k], buffer=buf,
+                              offset=self.offsets[k])
+                for k in self.keys}
+
+    def close(self, unlink: bool) -> None:
+        for seg in self._segs or []:
+            seg.close()
+            if unlink:
+                seg.unlink()
+        self._segs = None
+
+
+def _worker_loop(dataset, seed, task_q, result_q, slots: _ShmSlots,
+                 shm_names):
+    """A loader process (numpy and the host warp; it never touches a
+    device): makes each batch it is given into its shared-memory slot and
+    reports (batch, slot, size, metas, epoch, error)."""
+    slots.attach(shm_names)
+    try:
+        while True:
+            task = task_q.get()
+            if task is None:
+                return
+            gb, epoch, idx, slot = task
+            try:
+                batch = _make_batch(dataset, idx,
+                                    _batch_rng(seed, epoch, gb), epoch)
+                v = slots.views(slot)
+                n = batch['image'].shape[0]
+                for k in slots.keys:
+                    v[k][:n] = batch[k]
+                result_q.put((gb, slot, n, batch['metas'], epoch, None))
+            except Exception as e:      # reported to the parent
+                result_q.put((gb, -1, 0, None, epoch,
+                              f'{type(e).__name__}: {e}'))
+    finally:
+        slots.close(unlink=False)
+
+
+def _mp_batch_iterator(dataset, batch_size, seed, shuffle, drop_last,
+                       prefetch, epochs, num_workers) -> Iterator[Dict]:
+    """`num_workers` loader processes (spawned: the parent may hold CUDA).
+    Batches travel through shared-memory slots and are put back in order
+    in the parent, so contents and order equal the serial path's. Closing
+    the iterator stops the workers and unlinks the segments."""
+    import multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    max_in_flight = num_workers + max(prefetch, 1)
+    slots = _ShmSlots(batch_size, dataset.sample_spec(),
+                      n_slots=max_in_flight)
+    shm_names = slots.create()
+    task_q = ctx.Queue()
+    result_q = ctx.Queue()
+    workers = [ctx.Process(target=_worker_loop,
+                           args=(dataset, seed, task_q, result_q, slots,
+                                 shm_names),
+                           daemon=True)
+               for _ in range(num_workers)]
+    try:
+        for w in workers:
+            w.start()
+        plan = _batch_plan(dataset, batch_size, seed, shuffle, drop_last,
+                           epochs)
+        pending: Dict[int, Dict] = {}
+        free_slots = list(range(max_in_flight))
+        in_flight, next_emit, exhausted = 0, 0, False
+        while True:
+            while free_slots and not exhausted:
+                task = next(plan, None)
+                if task is None:
+                    exhausted = True
+                    break
+                gb, epoch, idx = task
+                task_q.put((gb, epoch, idx, free_slots.pop()))
+                in_flight += 1
+            if in_flight == 0:
+                return
+            while True:
+                # a worker killed mid-batch never reports: poll liveness
+                try:
+                    gb, slot, n, metas, epoch, err = result_q.get(timeout=5.0)
+                    break
+                except queue.Empty:
+                    dead = [w for w in workers if not w.is_alive()]
+                    if dead:
+                        raise RuntimeError(
+                            f'{len(dead)} loader worker(s) died without a '
+                            f'result (exit codes '
+                            f'{[w.exitcode for w in dead]}); likely an OOM '
+                            'kill -- reduce --loader-workers or the batch '
+                            'size')
+            in_flight -= 1
+            if err is not None:
+                raise RuntimeError(f'loader worker failed on batch {gb}: '
+                                   f'{err}')
+            v = slots.views(slot)
+            pending[gb] = {k: v[k][:n].copy() for k in slots.keys}
+            pending[gb].update(metas=metas, epoch=epoch)
+            free_slots.append(slot)
+            while next_emit in pending:
+                yield pending.pop(next_emit)
+                next_emit += 1
+    finally:
+        started = [w for w in workers if w.pid is not None]
+        for w in started:
+            if w.is_alive():
+                task_q.put(None)
+        # drain results while the workers finish: one blocked writing to a
+        # full result pipe exits only once it is read
+        end = time.monotonic() + 10.0
+        while (any(w.is_alive() for w in started)
+               and time.monotonic() < end):
+            try:
+                result_q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        for w in started:
+            if w.is_alive():
+                w.terminate()
+            w.join(timeout=5.0)
+        task_q.cancel_join_thread()     # unread tasks die with the queue
+        task_q.close()
+        result_q.close()
+        slots.close(unlink=True)
+
+
 def batch_iterator(dataset: CocoKeypoints, batch_size: int, *,
                    seed: int = 0, shuffle: bool = True,
                    drop_last: bool = True, prefetch: int = 2,
                    epochs: Optional[int] = None,
                    num_workers: int = 0) -> Iterator[Dict]:
     """Prefetching batch iterator yielding stacked numpy batches, made by
-    one background thread. Closing the iterator (or leaving a loop over it)
-    stops the thread."""
+    one background thread (`num_workers=0`) or by that many loader
+    processes. Contents and order are the same for every worker count.
+    Closing the iterator (or leaving a loop over it) stops the thread or
+    the processes."""
     if num_workers > 0:
-        raise NotImplementedError(
-            'loader worker processes (num_workers > 0) are not ported; '
-            'use num_workers=0 (one background thread)')
+        yield from _mp_batch_iterator(dataset, batch_size, seed, shuffle,
+                                      drop_last, prefetch, epochs,
+                                      num_workers)
+        return
     done = object()
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()

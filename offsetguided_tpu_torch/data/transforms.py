@@ -1,11 +1,14 @@
 """Eval-time rescale + pad, the inverse transform, COCO annotation
-normalization and the train-time augmentation parameters, on numpy images.
+normalization and the train-time augmentation, on numpy images.
 
-The augmentation parameters (`sample_affine_params`, `annotation_jitter`)
-make the same `np.random.RandomState` draws in the same order as the JAX
-package's, and `build_affine_mat` composes the same 3x3 matrix
-center2center @ zero2center @ flip @ scale @ rotate @ center2zero; the
-pixel work of the warp runs on the device (`ops/augment.py`).
+The augmentation parameters (`sample_affine_params`, `annotation_jitter`,
+`color_tint`) make the same `np.random.RandomState` draws in the same
+order as the JAX package's, and `build_affine_mat` composes the same 3x3
+matrix center2center @ zero2center @ flip @ scale @ rotate @ center2zero.
+On the device-augmentation route the pixel work runs on the device
+(`ops/augment.py`); on the host route `warp_affine`, `to_gray` and
+`color_tint` give the values of the JAX package's cv2 calls without
+OpenCV (`data/pixels.py`, identical value for value).
 
 Same coordinate conventions as the JAX package's `data/transforms.py`:
 rescaling uses `(target-1)/(orig-1)` scale factors, padding fills
@@ -20,8 +23,8 @@ import math
 from typing import Dict, List
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+from . import pixels
 
 PAD_RGB = (124, 116, 104)
 
@@ -125,9 +128,77 @@ def build_affine_mat(params: Dict, roi_center, src_wh, dst_wh,
     return mat.astype(np.float64), scale_x, scale_y
 
 
+def warp_affine(image, anns, meta, mask_miss, params: Dict, dst_size: int,
+                left_index, right_index, crop_roi: bool = True):
+    """The sampled affine applied to the image (cubic, PAD_RGB border), the
+    miss mask (cubic, border 255: not binary afterwards), the keypoints
+    (xy through the matrix, scale * sqrt(sx * sy), left/right swapped under
+    flip, v = 0 off the canvas) and `meta`."""
+    in_size = [dst_size, dst_size]
+    roi_center = _roi_center(anns, meta)
+    mat, scale_x, scale_y = build_affine_mat(
+        params, roi_center, meta['width_height'], in_size, crop_roi)
+    M = mat[:2]
+
+    image = pixels.warp_affine_u8_native(image, M, in_size[1], in_size[0],
+                                         PAD_RGB)
+    if mask_miss is not None:
+        mask_miss = pixels.warp_affine_u8_native(mask_miss, M, in_size[1],
+                                                 in_size[0], 255)
+
+    anns = anns.copy()
+    if len(anns):
+        homo = np.concatenate(
+            [anns[:, :, :2], np.ones_like(anns[:, :, :1])], axis=-1)
+        anns[:, :, :2] = np.einsum('ij,pkj->pki', M, homo)
+        anns[:, :, 3] *= math.sqrt(scale_x * scale_y)
+
+    meta = dict(meta)
+    left_index, right_index = list(left_index), list(right_index)
+    if params['flip'] and len(anns):
+        tmp_l = anns[:, left_index, :].copy()
+        anns[:, left_index, :] = anns[:, right_index, :]
+        anns[:, right_index, :] = tmp_l
+        jci = meta['joint_channel_ind'].copy()
+        jci[left_index] = right_index
+        jci[right_index] = left_index
+        meta['joint_channel_ind'] = jci
+
+    if len(anns):
+        off = ((anns[:, :, 0] <= 0) | (anns[:, :, 1] <= 0)
+               | (anns[:, :, 0] > in_size[0]) | (anns[:, :, 1] > in_size[1]))
+        anns[:, :, 2] = np.where(off, 0.0, anns[:, :, 2])
+
+    meta['hflip'] = bool(params['flip'])
+    meta['scale'] = meta['scale'] * np.array([scale_x, scale_y])
+    meta['rotate'] = meta['rotate'] + params['rotate']
+    meta['affine_mat'] = mat @ meta['affine_mat']
+    meta['width_height'] = np.array(in_size)
+    return image, anns, meta, mask_miss
+
+
+def to_gray(image: np.ndarray) -> np.ndarray:
+    """cv2's RGB2GRAY, repeated into three channels."""
+    return np.repeat(pixels.rgb_to_gray_u8(image)[:, :, None], 3, axis=2)
+
+
+def color_tint(image: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """Random HSV shifts (hue in [0, 180), three `randint` draws: hue,
+    saturation, value)."""
+    hsv = pixels.rgb_to_hsv_u8(image).astype(np.int32)
+    hsv[:, :, 0] = (hsv[:, :, 0] + rng.randint(-10, 11)) % 180
+    hsv[:, :, 1] = np.clip(hsv[:, :, 1] + rng.randint(-40, 41), 0, 255)
+    hsv[:, :, 2] = np.clip(hsv[:, :, 2] + rng.randint(-30, 31), 0, 255)
+    return pixels.hsv_to_rgb_u8(hsv.astype(np.uint8))
+
+
 def resize_bicubic_u8(image: np.ndarray, target_w: int,
                       target_h: int) -> np.ndarray:
-    """(H, W, 3) uint8 -> (target_h, target_w, 3) uint8, torch bicubic."""
+    """(H, W, 3) uint8 -> (target_h, target_w, 3) uint8, torch bicubic.
+    (torch is imported here: the training loader's processes, which import
+    this module, need no torch.)"""
+    import torch
+    import torch.nn.functional as F
     x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)
     y = F.interpolate(x[None].float(), size=(target_h, target_w),
                       mode='bicubic', align_corners=False)[0]

@@ -1,14 +1,17 @@
-"""Build `csrc/*.cu` with nvcc at first use and bind them with ctypes.
+"""Build `csrc/*.cu` with nvcc (and the host code `csrc/*.cpp` with the C++
+compiler) at first use and bind them with ctypes.
 
 Each source compiles on its own into `offsetguided_tpu_torch/_build/` (listed
 in `.gitignore`) as a shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
+    c++ -std=c++17 -O3 -shared -fPIC -ffp-contract=off \
+         -o _build/lib<name>-<hash>.so csrc/<name>.cpp
 
 The file name carries a hash of the source, of every `csrc/*.cuh` header it
-includes (`#include "<name>.cuh"`, followed into headers) and of the nvcc
-flags, so an edit to any of them rebuilds.
+includes (`#include "<name>.cuh"`, followed into headers) and of the
+compiler flags, so an edit to any of them rebuilds.
 `build_all()` starts one nvcc per source at once and waits for all of them.
 Every C entry point returns the `cudaGetLastError()` of its launches; the
 callers raise on a non-zero code.
@@ -29,8 +32,11 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / 'csrc'
 BUILD = PKG / '_build'
 SOURCES = ('peaks', 'grouping', 'topk', 'nms_topk')
+HOST_SOURCES = ('host_warp',)
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+# no contraction: only the source's explicit fmaf calls fuse
+CXX_FLAGS = ['-std=c++17', '-O3', '-shared', '-fPIC', '-ffp-contract=off']
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -67,6 +73,10 @@ SIGNATURES = {
         'og_nms_topk': ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr,
                          c_ptr], c_int),
     },
+    'host_warp': {
+        'og_warp_affine_u8': ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr,
+                               c_ptr, c_int, c_int], c_int),
+    },
 }
 # csrc/topk_select.cuh's shared-memory arithmetic, for the selection
 # kernels' wrappers: the most a block can have (Hopper's 227 KB opt-in),
@@ -95,10 +105,23 @@ def nvcc() -> str:
     return path
 
 
+def cxx() -> str:
+    path = shutil.which('c++') or shutil.which('g++')
+    if path is None:
+        raise RuntimeError('no C++ compiler (c++ or g++) found: the host '
+                           'code in csrc/*.cpp builds with one')
+    return path
+
+
+def _host(name: str) -> bool:
+    return name in HOST_SOURCES
+
+
 def _sources(name: str) -> List[Path]:
-    """`csrc/<name>.cu` and the `csrc/*.cuh` headers it includes, in
-    inclusion order."""
-    files, todo = [], [CSRC / f'{name}.cu']
+    """`csrc/<name>.cu` (or `.cpp`) and the `csrc/*.cuh` headers it
+    includes, in inclusion order."""
+    files, todo = [], [CSRC / (f'{name}.cpp' if _host(name)
+                               else f'{name}.cu')]
     while todo:
         f = todo.pop(0)
         if f in files:
@@ -109,7 +132,8 @@ def _sources(name: str) -> List[Path]:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(CXX_FLAGS if _host(name)
+                                else NVCC_FLAGS).encode())
     for f in _sources(name):
         h.update(f.name.encode() + b'\0' + f.read_bytes())
     return BUILD / f'lib{name}-{h.hexdigest()[:12]}.so'
@@ -121,7 +145,9 @@ def _start(name: str):
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+    src = _sources(name)[0]
+    cmd = ([cxx(), *CXX_FLAGS] if _host(name) else [nvcc(), *NVCC_FLAGS])
+    cmd += ['-o', str(tmp), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp, out
 
@@ -133,7 +159,8 @@ def _finish(name: str, job) -> None:
     log, _ = proc.communicate()
     build_logs[name] = log
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{log}')
+        raise RuntimeError(f'the build of {_sources(name)[0].name} '
+                           f'failed:\n{log}')
     os.replace(tmp, out)
 
 

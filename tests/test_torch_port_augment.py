@@ -92,9 +92,18 @@ def test_nearest_mask_resize_matches_cv2():
             cv2.resize(mask, (tw, th), interpolation=cv2.INTER_NEAREST))
 
 
-def test_unported_routes_refuse():
-    with pytest.raises(NotImplementedError):
-        next(pipeline.batch_iterator(None, 2, num_workers=2))
+def test_worker_batches_equal_serial(datasets):
+    """Two loader processes yield the one-thread loader's device-aug
+    batches (raw canvases, masks, parameters), in order."""
+    _, ds = datasets
+    kw = dict(seed=5, epochs=2)
+    serial = list(pipeline.batch_iterator(ds, 3, **kw))
+    par = list(pipeline.batch_iterator(ds, 3, num_workers=2, **kw))
+    assert len(par) == len(serial) == 4
+    for a, b in zip(serial, par):
+        assert a['epoch'] == b['epoch']
+        for k in SPEC_KEYS:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
 def random_warps(rng, n, h, w):

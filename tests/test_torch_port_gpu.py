@@ -16,7 +16,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (adversarial_cases, crowd_limbs,  # noqa: E402
-                        pose_sets_match)
+                        host_route_feed, host_route_targets_error,
+                        one_step_ok, pose_sets_match, train_one_step_errors)
 from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON  # noqa: E402
 from offsetguided_tpu_torch.config.defaults import DecoderConfig  # noqa: E402
 from offsetguided_tpu_torch.ops import grouping as plain_grouping  # noqa: E402
@@ -566,3 +567,16 @@ def test_nms_topk_kernel_takes_non_contiguous_maps(cuda):
     v, i = nms_topk.nms_topk(view, 24)
     pv, pi = nms_topk.nms_topk(view.contiguous(), 24)
     assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+
+
+def test_host_route_train_step_matches_cpu(cuda, tmp_path):
+    """A host-route batch (warped, grayed and tinted on the host; encoded
+    on each device): targets card vs CPU within 1e-6, and one SGD step of
+    the tiny model within the one-step tolerances (losses 1e-4 relative,
+    gradients 1e-3 relative + 1e-4 of the largest, BatchNorm statistics
+    1e-5), in fp64: in fp32 this batch meets a near-tie of rounding on the
+    card (ROADMAP Queue 3)."""
+    feed = host_route_feed(str(tmp_path))
+    assert host_route_targets_error(cuda, feed) <= 1e-6
+    e = train_one_step_errors(cuda, feed, 'float64')
+    assert one_step_ok(e), e

@@ -486,9 +486,46 @@ def test_cli_trains_and_resumes(tiny_set, tmp_path):
     assert torch.load(r2['checkpoint'], weights_only=False)['step'] == 3
 
 
+def test_cli_trains_host_route_with_validation(tiny_set, tmp_path):
+    """The default (host augmentation) route with --val-*: three steps
+    over an epoch of two, the validation pass at the epoch end (two
+    unaugmented batches, a finite loss), finite losses, a checkpoint."""
+    img_dir, ann = tiny_set
+    argv = [a for a in cli_args(tiny_set, tmp_path, '--max-steps', '3',
+                                '--val-image-dir', img_dir,
+                                '--val-annotations', ann)
+            if a != '--device-aug']
+    assert not train_cli.cli(argv).device_aug
+    r = train_cli.main(argv)
+    assert r['steps'] == 3 and len(r['history']) == 3
+    assert all(np.isfinite(h['total']) and h['skipped'] == 0.0
+               for h in r['history'])
+    assert len(r['val']) == 1 and r['val'][0]['epoch'] == 1
+    assert r['val'][0]['batches'] == 2 and np.isfinite(r['val'][0]['loss'])
+    assert torch.load(r['checkpoint'], weights_only=False)['step'] == 3
+
+
+def test_cli_trains_with_loader_workers_and_resumes(tiny_set, tmp_path):
+    """--loader-workers 2: the same losses as the one-thread loader, and a
+    resume from the checkpoint goes on from its step."""
+    argv = [a for a in cli_args(tiny_set, tmp_path / 'a', '--max-steps', '2')
+            if a != '--device-aug']
+    serial = train_cli.main(argv)
+    argv = [a for a in cli_args(tiny_set, tmp_path / 'b', '--max-steps', '2',
+                                '--loader-workers', '2')
+            if a != '--device-aug']
+    par = train_cli.main(argv)
+    assert [h['total'] for h in par['history']] == \
+        [h['total'] for h in serial['history']]
+    argv = [a for a in cli_args(tiny_set, tmp_path / 'c', '--max-steps', '1',
+                                '--loader-workers', '2', '--resume',
+                                par['checkpoint'])
+            if a != '--device-aug']
+    r = train_cli.main(argv)
+    assert torch.load(r['checkpoint'], weights_only=False)['step'] == 3
+
+
 @pytest.mark.parametrize('flags', [
-    [], ['--device-aug', '--val-image-dir', 'x', '--val-annotations', 'y'],
-    ['--device-aug', '--loader-workers', '2'],
     ['--device-aug', '--distributed'], ['--device-aug', '--freeze', 'hmp'],
     ['--device-aug', '--drop-layers', 'hmp'],
     ['--device-aug', '--basenet', 'hourglass4stage'],
