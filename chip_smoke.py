@@ -27,7 +27,14 @@ batch 8, bf16):
   AP75 = 1.0; its evaluation launches the fused peaks and grouping
   kernels), the trained model's records equal to the plain versions';
 - one fp32 train step of a tiny model, card against CPU, on a seeded
-  batch and on a host-route batch.
+  batch and on a host-route batch;
+- the port's JPEG / PNG codec built on the card's host (`[codec]`: pinned
+  body and pixel digests, decode ms), and the serving front end and its
+  tools: `cli.serve`'s HTTP server on port 0 (48 concurrent JPEG POSTs,
+  upsampled and `--lowres-decode`), `cli.bench`, `cli.bench_serve` (the
+  server as a subprocess, concurrency 16 for 15 s), `cli.bench_e2e` (100
+  hard-set JPEGs from disk, flip off / on, and fixed height),
+  `cli.profile_forward` and `cli.profile_decode --stages`.
 The three selection kernels are also held against their plain versions
 at k = 1024. Each path zeroes the kernels' launch counts just before it
 runs and reads them just after; each must have launched the kernels of its
@@ -351,6 +358,75 @@ def with_sentinels(packed):
 # phases
 # --------------------------------------------------------------------------- #
 
+# The [codec] phase's bodies: seeded images through the port's encoders,
+# each sampling mode of the JPEG encoder, restart markers, grey, and PNG.
+# CODEC_DIGESTS pins the SHA-256 of each body and of its decoded pixels
+# (tests/test_torch_port_codec.py holds them, and the pixels equal to
+# cv2.imdecode's, on the CPU); the card's host must reproduce both. A PNG
+# body's bytes are zlib's, which may differ between zlib versions: only
+# its pixels are pinned.
+CODEC_CASES = (('jpeg 444 q95', '444', 95, 0, False, (97, 153)),
+               ('jpeg 422 q95', '422', 95, 0, False, (97, 153)),
+               ('jpeg 420 q95', '420', 95, 0, False, (480, 640)),
+               ('jpeg 440 q95', '440', 95, 0, False, (97, 153)),
+               ('jpeg 411 q95', '411', 95, 0, False, (97, 153)),
+               ('jpeg 420 q50 restart 3', '420', 50, 3, False, (17, 3)),
+               ('jpeg grey q75', '420', 75, 0, True, (33, 41)),
+               ('png rgb', None, 0, 0, False, (61, 47)),
+               ('png grey', None, 0, 0, True, (61, 47)))
+# name -> (first 16 hex digits of the body's SHA-256, of the pixels')
+CODEC_DIGESTS = {
+    'jpeg 444 q95': ('e20411d82ea5565a', '274bd5cfa68df581'),
+    'jpeg 422 q95': ('cb68b41d328fbf8c', '51454eee53771957'),
+    'jpeg 420 q95': ('bc448f8a938e17d3', '497b647b8816af9c'),
+    'jpeg 440 q95': ('45936e2f3c0c26d1', '51b9dd77fff83b55'),
+    'jpeg 411 q95': ('cb463fc63731f19d', '7f65a38e91607a30'),
+    'jpeg 420 q50 restart 3': ('73545f45a2d400ef', 'e37e6c7e51dfa737'),
+    'jpeg grey q75': ('d7cad481efa6d66b', '99a4951ce957bffa'),
+    'png rgb': (None, '8d57d6096548b0f1'),
+    'png grey': (None, '12c7c2080c682715'),
+}
+
+
+def codec_digests(body: bytes, pixels: np.ndarray):
+    """(body digest, pixel digest) as CODEC_DIGESTS holds them."""
+    import hashlib
+    return (hashlib.sha256(body).hexdigest()[:16],
+            hashlib.sha256(np.ascontiguousarray(pixels).tobytes()
+                           ).hexdigest()[:16])
+
+
+def codec_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """A seeded (h, w, 3) uint8 RGB scene: smooth gradients, noise and a
+    painted stick figure."""
+    from offsetguided_tpu_torch.data.draw import circle, line3
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // max(w, 1), yy * 255 // max(h, 1),
+                    (xx + yy) % 256], -1).astype(np.float64)
+    img = np.clip(img + rng.randn(h, w, 3) * 12, 0, 255).astype(np.uint8)
+    pts = (TEMPLATE * [w * 0.6, h * 0.8] + [w * 0.2, h * 0.1]).astype(int)
+    for a, b in ((5, 7), (7, 9), (6, 8), (8, 10), (11, 13), (12, 14)):
+        line3(img, pts[a], pts[b], (210, 60, 60))
+    for x, y in pts:
+        circle(img, x, y, 3, (60, 200, 60))
+    return img
+
+
+def codec_cases():
+    """[(name, body)] of CODEC_CASES, encoded by the port's codec."""
+    from offsetguided_tpu_torch.data import codec
+    out = []
+    for i, (name, sampling, q, rst, grey, (h, w)) in enumerate(CODEC_CASES):
+        img = codec_image(h, w, seed=i)
+        if grey:
+            img = img[:, :, 1]
+        body = (codec.encode_png(img) if sampling is None else
+                codec.encode_jpeg(img, q, sampling, rst))
+        out.append((name, body))
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -384,8 +460,8 @@ def phase_build():
     from offsetguided_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     _build.build_all(_build.SOURCES + _build.HOST_SOURCES)
-    log(f'[build] {len(_build.SOURCES)} kernels and the host warp in '
-        f'{time.perf_counter() - t0:.1f} s (parallel nvcc for sm_90a, and '
+    log(f'[build] {len(_build.SOURCES)} kernels and the host warp and codec '
+        f'in {time.perf_counter() - t0:.1f} s (parallel nvcc for sm_90a, and '
         f'the host C++ compiler)')
     for name in _build.SOURCES:
         for ln in ptxas_lines(_build.build_logs.get(name, '')):
@@ -602,14 +678,14 @@ def phase_full_width(dev):
     just before its 2 warm-up + 5 timed batches, read just after).
     Returns ({path: {kernel: launches}}, serve, images)."""
     import torch
-    from offsetguided_tpu_torch.cli.serve import ServeConfig, build_infer
+    from offsetguided_tpu_torch.cli.serve import build_infer, cli
     from offsetguided_tpu_torch.eval.harness import make_infer_fn
     from offsetguided_tpu_torch.models import count_params
 
     rng = np.random.RandomState(7)
     images = torch.from_numpy(rng.randint(
         0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
-    serve = build_infer(ServeConfig(flip_test=False), device=dev, seed=0)
+    serve = build_infer(cli([]), device=dev, seed=0)
     infers = {False: serve[0],
               True: make_infer_fn(serve[3], serve[0].postprocessor, True)}
     log(f'[full] Hourglass-104, {count_params(serve[3]) / 1e6:.1f} M '
@@ -875,8 +951,8 @@ def phase_batcher(dev, model_serve):
         f'answered, poses per request {[len(r) for r in results]}, '
         f'p50 latency {np.median(lat) * 1e3:.1f} ms (host preprocess + '
         f'queue + batch), device-batch p50 '
-        f'{m["device_batch_p50_ms"]:.1f} ms over {m["batches"]} '
-        f'batches, kernel launches {launches}')
+        f'{m["device_batch_latency_ms"]["p50"]:.1f} ms over '
+        f'{m["batches"]} batches, kernel launches {launches}')
     return launches
 
 
@@ -1403,12 +1479,12 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
     kernels held against their plain versions on the trained model's maps
     and end to end."""
     import torch
-    from offsetguided_tpu_torch.cli.serve import ServeConfig, build_infer
+    from offsetguided_tpu_torch.cli.serve import build_infer, cli
     from offsetguided_tpu_torch.ops.cuda import peaks
     from offsetguided_tpu_torch.ops.image import normalize_images
 
     sd = torch.load(path, map_location='cpu', weights_only=False)['model']
-    infer, _, _, model = build_infer(ServeConfig(), model_cfg, state_dict=sd,
+    infer, _, _, model = build_infer(cli([]), model_cfg, state_dict=sd,
                                      device=dev)
     images = torch.from_numpy(np.random.RandomState(11).randint(
         0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
@@ -1765,6 +1841,270 @@ def phase_train_one_step(dev, root):
                  f'CPU tests\' tolerances')
 
 
+def phase_codec():
+    """The port's JPEG / PNG codec, built on this host: the pinned bodies
+    decode to the pinned pixels (CODEC_DIGESTS, equal to cv2.imdecode's
+    where a CPU test pinned them), and the decode time of a 480x640 JPEG
+    and of a painted hard-set scene on one host thread."""
+    from offsetguided_tpu_torch.cli.bench_serve import make_test_jpegs
+    from offsetguided_tpu_torch.data import codec
+
+    for name, body in codec_cases():
+        px = codec.decode(body)
+        got, want = codec_digests(body, px), CODEC_DIGESTS[name]
+        if got[1] != want[1] or (want[0] is not None and got[0] != want[0]):
+            fail(f'[codec] {name}: digests {got}, pinned {want}')
+    log(f'[codec] {len(CODEC_CASES)} bodies (JPEG 4:4:4, 4:2:2, 4:2:0, '
+        f'4:4:0, 4:1:1, restarts, grey; PNG RGB, grey): bodies and pixels '
+        f'equal to the pinned digests')
+    bodies = dict(codec_cases())
+    timed = [('480x640 q95 4:2:0 noisy gradient', bodies['jpeg 420 q95'])]
+    timed += [(f'{codec.decode(b).shape[1]}x{codec.decode(b).shape[0]} '
+               f'painted hard-set scene', b) for b in make_test_jpegs(2)]
+    for what, body in timed:
+        ts = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            codec.decode(body)
+            ts.append(time.perf_counter() - t0)
+        img = codec.decode(body)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            codec.encode_jpeg(img)
+        enc = (time.perf_counter() - t0) / 5
+        log(f'[codec] decode {what} ({len(body)} bytes): median '
+            f'{np.median(ts) * 1e3:.2f} ms, min {min(ts) * 1e3:.2f} ms on one '
+            f'host thread; encode q95 {enc * 1e3:.2f} ms')
+
+
+SERVE_REQUESTS = 48
+
+
+def phase_serve_http(dev):
+    """`cli.serve`'s HTTP server at full width (batch 8, 640^2, flip off)
+    on port 0 in a thread, upsampled and `--lowres-decode`: 48 concurrent
+    POSTs of codec JPEGs of the hard set's mixed sizes; every answer 200
+    with poses of 17 keypoints; each mode's kernels launched."""
+    import torch
+    import urllib.request
+    from offsetguided_tpu_torch.cli import serve
+    from offsetguided_tpu_torch.cli.bench_serve import (make_test_jpegs,
+                                                        percentiles)
+
+    bodies = make_test_jpegs(SERVE_REQUESTS, seed=1)
+    modes = {'serve_http': ([], ('peaks', 'grouping'), ('topk', 'nms_topk')),
+             'serve_http_lowres': (['--lowres-decode'],
+                                   ('nms_topk', 'grouping'),
+                                   ('peaks', 'topk'))}
+    launches = {}
+    for path, (extra, need, never) in modes.items():
+        args = serve.cli(['--port', '0', '--request-timeout-s', '120']
+                         + extra)
+        infer, skeleton, ecfg, _ = serve.build_infer(
+            args, serve.model_config(args), None, dev)
+        s = ecfg.long_edge
+        infer(torch.zeros((ecfg.batch_size, s, s, 3), dtype=torch.uint8,
+                          device=dev))[2].cpu()
+        srv = serve.make_server(args, infer, skeleton, ecfg)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = 'http://%s:%d' % srv.server_address[:2]
+        answers, lats = [None] * len(bodies), [None] * len(bodies)
+
+        def post(i):
+            req = urllib.request.Request(url + '/v1/poses', data=bodies[i],
+                                         headers={'Content-Type':
+                                                  'image/jpeg'})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers[i] = (r.status, json.loads(r.read()))
+            except Exception as e:  # reported below; the phase then fails
+                answers[i] = (None, repr(e))
+            lats[i] = time.perf_counter() - t0
+
+        reset_launches()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches[path] = read_launches()
+            with urllib.request.urlopen(url + '/metrics', timeout=30) as r:
+                m = json.loads(r.read())
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        bad = [a for a in answers if a is None or a[0] != 200]
+        if bad:
+            fail(f'{path}: {len(bad)} of {len(bodies)} requests failed: '
+                 f'{bad[:3]}')
+        n_poses = [len(a[1]['poses']) for a in answers]
+        if any(n == 0 for n in n_poses) or any(
+                len(p['keypoints']) != J for a in answers
+                for p in a[1]['poses']):
+            fail(f'{path}: an answer without poses of {J} keypoints: '
+                 f'{n_poses}')
+        check_launches(path, launches[path], need, never)
+        pct = percentiles(lats)
+        log(f'[serve http] {path}: {len(bodies)} concurrent POSTs of '
+            f'{len(set(a[1]["image"]["width"] for a in answers))}-width '
+            f'JPEGs all 200, poses per answer {min(n_poses)}-{max(n_poses)}; '
+            f'{len(bodies) / wall:.2f} QPS (host clock, one burst), client '
+            f'p50 {pct["p50"]:.1f} / p90 {pct["p90"]:.1f} / p99 '
+            f'{pct["p99"]:.1f} ms, mean batch fill {m["mean_batch_fill"]}, '
+            f'device-batch p50 {m["device_batch_latency_ms"]["p50"]} ms over '
+            f'{m["batches"]} batches, kernel launches {launches[path]}')
+        del infer, srv
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bench():
+    """`cli.bench`: full-width Hourglass-104 bf16 at 640^2, batch 8, flip
+    off and on; its JSON line, and the peaks + grouping launches."""
+    import torch
+    from offsetguided_tpu_torch.cli import bench
+
+    reset_launches()
+    out = bench.main([])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches('bench', launches, ('peaks', 'grouping'),
+                   never=('topk', 'nms_topk'))
+    if not (out['value'] > 0 and out['flip_value'] > 0):
+        fail(f'bench: {out}')
+    log(f'[bench] {out["value"]} img/s flip off, {out["flip_value"]} img/s '
+        f'flip on, batch {out["batch"]} (host clock between two '
+        f'synchronizations), kernel launches {launches}')
+    torch.cuda.empty_cache()
+    return {'bench': launches}
+
+
+BENCH_SERVE_ARGS = ['--concurrency', '16', '--duration', '15', '--json']
+
+
+def phase_bench_serve():
+    """`cli.bench_serve` in its subprocess mode: the port's server started
+    as `python -m offsetguided_tpu_torch.cli.serve` (full width, batch 8),
+    16 closed-loop clients posting JPEGs for 15 s; then `--in-process`
+    (the batcher driven with preprocessed images: no HTTP, no decode) and
+    the host work a request costs on one thread, which together say where
+    the served time goes."""
+    from offsetguided_tpu_torch.cli import bench_serve
+    from offsetguided_tpu_torch.config.defaults import EvalConfig
+    from offsetguided_tpu_torch.data import codec
+    from offsetguided_tpu_torch.eval.harness import preprocess_eval
+
+    out = bench_serve.main(BENCH_SERVE_ARGS)
+    if 'error' in out or out['client_errors'] or out['server']['errors']:
+        fail(f'bench_serve: {out}')
+    lat, srv = out['latency_ms'], out['server']
+    log(f'[bench_serve] cold start to /healthz {out["startup_s"]} s; '
+        f'{out["qps"]} QPS at concurrency 16 over {out["duration_s"]} s '
+        f'({out["requests"]} requests); client p50 {lat["p50"]} / p90 '
+        f'{lat["p90"]} / p99 {lat["p99"]} ms; server mean batch fill '
+        f'{srv["mean_batch_fill"]}, device-batch p50 / p99 '
+        f'{srv["device_batch_latency_ms"]["p50"]} / '
+        f'{srv["device_batch_latency_ms"]["p99"]} ms')
+    inp = bench_serve.main(BENCH_SERVE_ARGS + ['--in-process'])
+    if 'error' in inp or inp['client_errors'] or inp['batcher']['errors']:
+        fail(f'bench_serve --in-process: {inp}')
+    lat, b = inp['submit_latency_ms'], inp['batcher']
+    log(f'[bench_serve] in process (no HTTP, images decoded and '
+        f'preprocessed once): {inp["qps"]} QPS, submit p50 {lat["p50"]} / '
+        f'p99 {lat["p99"]} ms, mean fill {b["mean_batch_fill"]}, '
+        f'device-batch p50 {b["device_batch_latency_ms"]["p50"]} ms; one '
+        f'resident batch {inp["device_floor_ms_per_batch"]} ms (CUDA '
+        f'events), {inp["device_floor_qps_at_full_fill"]} QPS at full fill')
+    cfg = EvalConfig(long_edge=LONG_EDGE, batch_size=N_IMG)
+    dec, pre = [], []
+    for body in bench_serve.make_test_jpegs(24):
+        t0 = time.perf_counter()
+        img = codec.decode(body)
+        t1 = time.perf_counter()
+        preprocess_eval(img, np.zeros((0, J, 4), np.float32), cfg)
+        dec.append(t1 - t0)
+        pre.append(time.perf_counter() - t1)
+    log(f'[bench_serve] host work a request, one thread, the 24 bodies: '
+        f'JPEG decode median {np.median(dec) * 1e3:.2f} ms, preprocess '
+        f'(rescale + pad) median {np.median(pre) * 1e3:.2f} ms, max '
+        f'{max(pre) * 1e3:.2f} ms')
+
+
+def phase_bench_e2e(root):
+    """`cli.bench_e2e` on the 100-image hard set written as codec JPEGs,
+    4 IO workers: long edge 640 flip off and on (peaks + grouping), then
+    fixed height (block top-k + grouping)."""
+    import torch
+    from offsetguided_tpu_torch.cli import bench_e2e
+
+    base = ['--data-root', os.path.join(root, 'bench_e2e'), '--n-images',
+            '100', '--io-workers', '4']
+    runs = {'bench_e2e': (['--modes', 'noflip,flip'], ('peaks', 'grouping'),
+                          ('topk', 'nms_topk')),
+            'bench_e2e_fixed_height': (['--modes', 'noflip',
+                                        '--fixed-height'],
+                                       ('topk', 'grouping'),
+                                       ('peaks', 'nms_topk'))}
+    launches = {}
+    for path, (extra, need, never) in runs.items():
+        reset_launches()
+        lines = bench_e2e.main(base + extra)
+        torch.cuda.synchronize()
+        launches[path] = read_launches()
+        check_launches(path, launches[path], need, never)
+        for x in lines:
+            if not x['value'] > 0 or x['n_results'] < x['n_images']:
+                fail(f'{path}: {x}')
+            log(f'[bench_e2e] {x["metric"]}: {x["value"]} img/s from disk '
+                f'(host clock; JPEG decode, preprocess, forward, decode, '
+                f'records), cold pass {x["cold_pass_s"]} s, '
+                f'{x["n_results"]} records'
+                + (f', {x["n_padded_shapes"]} padded shapes'
+                   if 'n_padded_shapes' in x else ''))
+        log(f'[bench_e2e] {path}: kernel launches {launches[path]}')
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tools_profile():
+    """`cli.profile_forward` (top 10 device operations) and
+    `cli.profile_decode --stages` at 640^2, batch 8."""
+    import torch
+    from offsetguided_tpu_torch.cli import profile_decode, profile_forward
+
+    fwd = profile_forward.main([])
+    if not fwd['top_ops']:
+        log('[profile tools] the profiler recorded no device time: '
+            'not measured')
+    log(f'[profile tools] forward {fwd["ms_per_batch"]} ms a batch of '
+        f'{fwd["batch"]} '
+        f'(CUDA events), {fwd["tflop_per_s"]} TFLOP/s of '
+        f'{fwd["tflop_per_batch"]} TFLOP counted')
+    for op in fwd['top_ops']:
+        log(f'[profile tools]   {op["ms"]:9.3f} ms x{op["calls"]:<5d} '
+            f'{op["share"]:6.1%} {op["name"][:80]}')
+    torch.cuda.empty_cache()
+    reset_launches()
+    dec = profile_decode.main(['--stages'])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches('profile_decode', launches, ('peaks', 'grouping'),
+                   never=('topk', 'nms_topk'))
+    log(f'[profile tools] decode {dec["decode_ms"]} ms a batch of '
+        f'{dec["batch"]} (CUDA '
+        f'events); stages (ms, card synchronized at each edge): '
+        f'{dec["stages_ms"]}')
+    torch.cuda.empty_cache()
+    return {'profile_decode': launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1781,6 +2121,7 @@ def main() -> int:
     skeleton = tuple(COCO_PERSON_SKELETON)
     records = {}
     phase_build()
+    phase_codec()
     phase_peaks(dev, skeleton, records)
     phase_grouping(dev, skeleton, records)
     launches, serve, images = phase_full_width(dev)
@@ -1792,7 +2133,12 @@ def main() -> int:
     phase_large_k(dev)
     del serve, images
     torch.cuda.empty_cache()
+    launches.update(phase_serve_http(dev))
+    launches.update(phase_bench())
+    phase_bench_serve()
     with tempfile.TemporaryDirectory() as root:
+        launches.update(phase_bench_e2e(root))
+        launches.update(phase_tools_profile())
         launches.update(phase_evaluate(dev, root))
         launches.update(phase_oracle(dev, root))
         torch.cuda.empty_cache()

@@ -364,12 +364,11 @@ def grouping_inputs(dev):
     import numpy as np
     import torch
     from chip_smoke import LONG_EDGE, crowd_case, person_scene_limbs
-    from offsetguided_tpu_torch.cli.serve import ServeConfig, build_infer
+    from offsetguided_tpu_torch.cli.serve import build_infer, cli
     from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
     from offsetguided_tpu_torch.ops.image import normalize_images
 
-    infer, _, _, model = build_infer(ServeConfig(flip_test=False), device=dev,
-                                     seed=0)
+    infer, _, _, model = build_infer(cli([]), device=dev, seed=0)
     pp = infer.postprocessor
     images = torch.from_numpy(np.random.RandomState(7).randint(
         0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
@@ -494,13 +493,12 @@ def nms_inputs(dev):
     import numpy as np
     import torch
     from chip_smoke import LONG_EDGE, person_maps
-    from offsetguided_tpu_torch.cli.serve import ServeConfig, build_infer
+    from offsetguided_tpu_torch.cli.serve import build_infer, cli
     from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
     from offsetguided_tpu_torch.decoder.pipeline import PostProcessor
     from offsetguided_tpu_torch.ops.image import normalize_images
 
-    infer, _, _, model = build_infer(ServeConfig(flip_test=False), device=dev,
-                                     seed=0)
+    infer, _, _, model = build_infer(cli([]), device=dev, seed=0)
     pp = PostProcessor(cfg=dataclasses.replace(infer.postprocessor.cfg,
                                                upsampled_decode=False))
     images = torch.from_numpy(np.random.RandomState(7).randint(

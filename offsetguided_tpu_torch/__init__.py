@@ -18,13 +18,15 @@ Layer map:
     ops/cuda/ kernel loader and wrappers; csrc/ holds the CUDA sources
     decoder/  PostProcessor: flip merge, decode routes, grouping
     data/     eval-time rescale + pad, inverse transform, COCO index, masks,
-              image reading, augmentation parameters, the training dataset
-              and batch iterator, the hard synthetic benchmark
+              image reading, the JPEG / PNG codec (csrc/codec.cpp),
+              drawing, augmentation parameters, the training dataset and
+              batch iterator, the hard synthetic benchmark
     eval/     preprocess, batched forward + decode, COCO records, OKS AP
     parallel/ the train step, optimizers and LR schedules
-    utils/    meters and JSON logging
-    cli/      serving core (micro-batcher), evaluate, simulate (oracle),
-              train
+    utils/    meters, JSON logging, profiling (traces, device time)
+    cli/      the HTTP pose server, evaluate, simulate (oracle), train,
+              self-check, and the measurement tools (bench, bench_serve,
+              bench_e2e, bench_data, profile_forward, profile_decode)
 
 The package never imports JAX or the JAX package.
 """

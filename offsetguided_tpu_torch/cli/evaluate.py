@@ -7,8 +7,8 @@ unless told otherwise). Weights: `--torch-checkpoint` (a reference `.pth`
 state dict, loaded strictly into the port's reference-named modules), or
 random seeded weights with BatchNorm calibrated at `--long-edge`
 (`--debug-tiny-model` for a narrow network). Images are read with
-`data/coco.py::read_image`: `.npy` uint8 RGB needs no codec, other
-formats need cv2.
+`data/coco.py::read_image`: JPEG and PNG through the port's codec
+(`data/codec.py`), `.npy` uint8 RGB with numpy.
 
 Not taken here: `--checkpoint` (orbax; it comes with the training slice),
 `--peaks-map-batch` (a TPU tuning knob) and `--dataset crowdpose` (the

@@ -20,10 +20,10 @@ cuDNN takes its deterministic algorithms, so a seed's run repeats) and
 `--work-dir`. `make_dataset` draws without OpenCV and writes `.npy`
 images (the JAX package draws with cv2 and writes JPEG): the figures
 repeat cv2's fixed-point circle (the same pixels) and 3-pixel line (about
-one limb in twelve differs by two pixels), and a numpy JPEG round trip
-at quality 95 gives the images the compression the JAX package's carry
-(within 1.4 grey levels, mean, of its images); the annotations are the
-JAX package's, draw for draw from the same `RandomState` stream.
+one limb in twelve differs by two pixels), and the port's codec gives
+them the JAX package's JPEG round trip (cv2.imwrite at quality 95, then
+cv2.imread: the same bytes and pixels); the annotations are the JAX
+package's, draw for draw from the same `RandomState` stream.
 
     python -m offsetguided_tpu_torch.cli.selfcheck [--device-aug]
 
@@ -42,6 +42,9 @@ from typing import Dict
 
 import numpy as np
 
+from ..data import codec
+from ..data.draw import circle, line3
+
 TEMPLATE = np.array([
     [0.50, 0.07], [0.46, 0.05], [0.54, 0.05], [0.42, 0.07], [0.58, 0.07],
     [0.36, 0.22], [0.64, 0.22], [0.32, 0.40], [0.68, 0.40], [0.30, 0.57],
@@ -53,189 +56,6 @@ DRAW_LIMBS = [(5, 6), (5, 7), (6, 8), (11, 12), (5, 11), (6, 12), (11, 13),
 
 SQUARE = 128            # training side and evaluation long edge
 BATCH = 4
-
-
-# cv2's drawing in its 16-bit fixed point, for the self-check's figures:
-# filled circles (the same pixels as cv2.circle) and 3-pixel lines (a
-# filled quadrilateral with round caps, as cv2.line draws them; its edge
-# rasterization rounds differently from cv2's, so about one line in
-# twelve gets two pixels more)
-_SHIFT = 16
-_ONE = 1 << _SHIFT
-_HALF = _ONE >> 1
-
-
-def _tdiv(a: int, b: int) -> int:
-    """C integer division (toward zero)."""
-    q = abs(a) // abs(b)
-    return q if (a >= 0) == (b > 0) else -q
-
-
-def _hline(img: np.ndarray, y: int, x1: int, x2: int, color) -> None:
-    h, w = img.shape[:2]
-    if 0 <= y < h and max(x1, 0) <= min(x2, w - 1):
-        img[y, max(x1, 0):min(x2, w - 1) + 1] = color
-
-
-def _circle(img: np.ndarray, cx: int, cy: int, r: int, color) -> None:
-    """cv2.circle(img, (cx, cy), r, color, -1): midpoint circle, filled by
-    horizontal spans."""
-    err, dx, dy, plus, minus = 0, r, 0, 1, 2 * r - 1
-    while dx >= dy:
-        for y, x1, x2 in ((cy - dy, cx - dx, cx + dx), (cy + dy, cx - dx,
-                                                        cx + dx),
-                          (cy - dx, cx - dy, cx + dy), (cy + dx, cx - dy,
-                                                        cx + dy)):
-            _hline(img, y, x1, x2, color)
-        dy += 1
-        err += plus
-        plus += 2
-        mask = 0 if err <= 0 else -1
-        err -= minus & mask
-        dx += mask
-        minus -= mask & 2
-
-
-def _edge(img: np.ndarray, p1, p2, color) -> None:
-    """A polygon edge between fixed-point points, pixel by pixel along its
-    major axis."""
-    h, w = img.shape[:2]
-    (x1, y1), (x2, y2) = p1, p2
-    dx, dy = x2 - x1, y2 - y1
-    major_x = abs(dx) > abs(dy)
-    if (dx if major_x else dy) < 0:
-        x1, y1, x2, y2 = x2, y2, x1, y1
-        dx, dy = -dx, -dy
-    if major_x:
-        step = _tdiv(dy << _SHIFT, abs(dx) | 1)
-        count = (x2 >> _SHIFT) - (x1 >> _SHIFT)
-    else:
-        step = _tdiv(dx << _SHIFT, abs(dy) | 1)
-        count = (y2 >> _SHIFT) - (y1 >> _SHIFT)
-    x1 += _HALF
-    y1 += _HALF
-    pts = [((x2 + _HALF) >> _SHIFT, (y2 + _HALF) >> _SHIFT)]
-    for k in range(count + 1):
-        pts.append(((x1 >> _SHIFT) + k, (y1 + k * step) >> _SHIFT) if major_x
-                   else ((x1 + k * step) >> _SHIFT, (y1 >> _SHIFT) + k))
-    for x, y in pts:
-        if 0 <= x < w and 0 <= y < h:
-            img[y, x] = color
-
-
-def _convex_poly(img: np.ndarray, v, color) -> None:
-    """cv2's FillConvexPoly of fixed-point vertices: the edges, then the
-    spans between the two edge walkers, row by row."""
-    n = len(v)
-    h, w = img.shape[:2]
-    for i in range(n):
-        _edge(img, v[i - 1], v[i], color)
-    imin = min(range(n), key=lambda i: (v[i][1], i))
-    ymin = (v[imin][1] + _HALF) >> _SHIFT
-    ymax = min((max(p[1] for p in v) + _HALF) >> _SHIFT, h - 1)
-    walkers = [dict(idx=imin, di=1, x=-_ONE, dx=0, ye=ymin),
-               dict(idx=imin, di=n - 1, x=-_ONE, dx=0, ye=ymin)]
-    y, edges = ymin, n
-    while y <= ymax:
-        for e in walkers:
-            if y < e['ye']:
-                continue
-            i0, i1 = e['idx'], (e['idx'] + e['di']) % n
-            while edges > 0:
-                edges -= 1
-                ty = (v[i1][1] + _HALF) >> _SHIFT
-                if ty > y:
-                    e.update(ye=ty, x=v[i0][0], idx=i1, dx=_tdiv(
-                        (v[i1][0] - v[i0][0]) * 2 + (ty - y), 2 * (ty - y)))
-                    break
-                i0, i1 = i1, (i1 + e['di']) % n
-            else:
-                edges -= 1
-        if edges < 0:
-            break
-        xl, xr = sorted(e['x'] for e in walkers)
-        _hline(img, y, (xl + _HALF) >> _SHIFT, (xr + _HALF) >> _SHIFT, color)
-        for e in walkers:
-            e['x'] += e['dx']
-        y += 1
-
-
-def _line3(img: np.ndarray, p, q, color) -> None:
-    """cv2.line(img, p, q, color, thickness=3): a rectangle 2 pixels to
-    either side of the segment and round caps of radius 2."""
-    p0 = (int(p[0]) << _SHIFT, int(p[1]) << _SHIFT)
-    p1 = (int(q[0]) << _SHIFT, int(q[1]) << _SHIFT)
-    dx = (p0[0] - p1[0]) / _ONE
-    dy = (p1[1] - p0[1]) / _ONE
-    r2 = dx * dx + dy * dy
-    if r2 > np.finfo(np.float64).eps:
-        r = 2 * _ONE / np.sqrt(r2)      # (3 << 15) + 0.5 * _ONE for odd 3
-        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
-        _convex_poly(img, [(p0[0] + ox, p0[1] + oy), (p0[0] - ox, p0[1] - oy),
-                           (p1[0] - ox, p1[1] - oy), (p1[0] + ox, p1[1] + oy)],
-                     color)
-    for c in (p0, p1):
-        _circle(img, (c[0] + _HALF) >> _SHIFT, (c[1] + _HALF) >> _SHIFT, 2,
-                color)
-
-
-# JPEG at cv2's default quality 95 with 4:2:0 chroma (what the JAX
-# package's images go through), as a numpy round trip: JFIF YCbCr, 2x2
-# chroma averages, 8x8 DCTs quantized by the standard tables at quality
-# 95, libjpeg's "fancy" chroma upsampling. Within 1.4 grey levels (mean)
-# of libjpeg's result on the self-check images.
-_Q_LUMA = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103,
-    99], np.float64).reshape(8, 8)
-_Q_CHROMA = np.full((8, 8), 99.0)
-_Q_CHROMA[:4, :4] = [[17, 18, 24, 47], [18, 21, 26, 66], [24, 26, 56, 99],
-                     [47, 66, 99, 99]]
-_K = np.arange(8)
-_DCT = np.sqrt(2 / 8) * np.cos((2 * _K[None, :] + 1) * _K[:, None]
-                               * np.pi / 16)
-_DCT[0] /= np.sqrt(2)
-
-
-def _quantized(plane: np.ndarray, table: np.ndarray,
-               quality: int) -> np.ndarray:
-    """One plane through 8x8 DCT, quantization at `quality` and back."""
-    q = np.clip(np.floor((table * (200 - 2 * quality) + 50) / 100), 1, 255)
-    h, w = plane.shape
-    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
-    x = np.pad(plane, ((0, hp - h), (0, wp - w)), mode='edge') - 128.0
-    blocks = x.reshape(hp // 8, 8, wp // 8, 8).transpose(0, 2, 1, 3)
-    c = np.round(_DCT @ blocks @ _DCT.T / q) * q
-    x = (_DCT.T @ c @ _DCT).transpose(0, 2, 1, 3).reshape(hp, wp)
-    return x[:h, :w] + 128.0
-
-
-def _jpeg_like(rgb: np.ndarray, quality: int = 95) -> np.ndarray:
-    """uint8 RGB (even sides) -> its JPEG round trip, approximately."""
-    x = rgb.astype(np.float64)
-    r, g, b = x[..., 0], x[..., 1], x[..., 2]
-    y = _quantized(0.299 * r + 0.587 * g + 0.114 * b, _Q_LUMA, quality)
-    chroma = []
-    for c in (-0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-              0.5 * r - 0.418688 * g - 0.081312 * b + 128):
-        h, w = c.shape
-        c = c.reshape(h // 2, 2, w // 2, 2).mean((1, 3))
-        c = _quantized(c, _Q_CHROMA, quality)
-        p = np.pad(c, 1, mode='edge')
-        up = np.empty((h, w))
-        for dy in (0, 1):
-            for dx in (0, 1):
-                vert = p[2 * dy:2 * dy + h // 2, 1:-1]
-                horz = p[1:-1, 2 * dx:2 * dx + w // 2]
-                diag = p[2 * dy:2 * dy + h // 2, 2 * dx:2 * dx + w // 2]
-                up[dy::2, dx::2] = (9 * c + 3 * vert + 3 * horz + diag) / 16
-        chroma.append(up - 128.0)
-    cb, cr = chroma
-    out = np.stack([y + 1.402 * cr, y - 0.344136 * cb - 0.714136 * cr,
-                    y + 1.772 * cb], axis=-1)
-    return np.clip(np.round(out), 0, 255).astype(np.uint8)
 
 
 def make_dataset(root: pathlib.Path, n_images: int = 4):
@@ -260,11 +80,11 @@ def make_dataset(root: pathlib.Path, n_images: int = 4):
             kps[:, 2] = 2
             pts = kps[:, :2].astype(int)
             for a, b in DRAW_LIMBS:
-                _line3(img, pts[a], pts[b], (220, 40, 40))
+                line3(img, pts[a], pts[b], (220, 40, 40))
             for j in range(17):
-                _circle(img, pts[j, 0], pts[j, 1], 4, (40, 220, 40))
-                _circle(img, pts[j, 0], pts[j, 1], 2,
-                        (40 + j * 10, 120, 250 - j * 10))
+                circle(img, pts[j, 0], pts[j, 1], 4, (40, 220, 40))
+                circle(img, pts[j, 0], pts[j, 1], 2,
+                       (40 + j * 10, 120, 250 - j * 10))
             bw = kps[:, 0].max() - kps[:, 0].min() + 6
             bh = kps[:, 1].max() - kps[:, 1].min() + 6
             bx, by = kps[:, 0].min() - 3, kps[:, 1].min() - 3
@@ -282,7 +102,9 @@ def make_dataset(root: pathlib.Path, n_images: int = 4):
         name = f'{img_id:06d}.npy'
         # the colors above are cv2's BGR: the JAX package's reader gives
         # the channels reversed, after the JPEG round trip
-        np.save(root / 'images' / name, _jpeg_like(img[:, :, ::-1]))
+        rgb = img[:, :, ::-1]
+        np.save(root / 'images' / name,
+                codec.decode(codec.encode_jpeg(rgb)))
         images.append({'id': img_id, 'file_name': name, 'height': h,
                        'width': w})
     (root / 'annotations.json').write_text(json.dumps(

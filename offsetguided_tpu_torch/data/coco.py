@@ -7,10 +7,9 @@ polygon rasterization; the JAX package fills polygons with `cv2.fillPoly`,
 which `polygons_to_mask` repeats in numpy, pixel for pixel (outline and
 even-odd scanline fill), so it runs where OpenCV is not installed.
 
-`read_image` is the one IO difference from the JAX package, which reads
-every image with cv2: a `.npy` file is read with numpy (uint8 RGB, as
-written), so evaluation runs where no image codec is installed; any other
-file goes through cv2, imported at the call.
+`read_image` gives what the JAX package's `cv2.imread` + BGR2RGB gives:
+JPEG and PNG files go through the port's own codec (`data/codec.py`, no
+OpenCV), and a `.npy` file is read with numpy (uint8 RGB, as written).
 """
 from __future__ import annotations
 
@@ -19,6 +18,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from . import codec
 
 
 def rle_decode_counts(s: str) -> List[int]:
@@ -332,23 +333,16 @@ class CocoJson:
 
 
 def read_image(path: str) -> Optional[np.ndarray]:
-    """(H, W, 3) uint8 RGB, or None when the file is missing or unreadable.
-    `.npy` files hold uint8 RGB already; other formats need OpenCV."""
-    if path.endswith('.npy'):
-        try:
-            img = np.load(path)
-        except (OSError, ValueError):
-            return None
-        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-            raise ValueError(f'{path}: expected (H, W, 3) uint8 RGB, got '
-                             f'{img.dtype} {img.shape}')
-        return img
+    """(H, W, 3) uint8 RGB, or None when the file is missing or unreadable:
+    `.npy` files hold uint8 RGB already; JPEG and PNG go through the
+    codec."""
+    if not path.endswith('.npy'):
+        return codec.imread(path)
     try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            f'reading {path} needs OpenCV (cv2), which is not installed; '
-            f'store the images as (H, W, 3) uint8 RGB .npy files instead'
-        ) from e
-    img = cv2.imread(path)
-    return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        img = np.load(path)
+    except (OSError, ValueError):
+        return None
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'{path}: expected (H, W, 3) uint8 RGB, got '
+                         f'{img.dtype} {img.shape}')
+    return img

@@ -7,10 +7,13 @@ people, occlusion-marked keypoints and crowd regions. Feeding its GT through
 encode -> decode (`cli/simulate.py`) measures the AP ceiling of the
 encoding under realistic difficulty.
 
-`hard_annotations` builds the COCO annotation dict and needs no image
-codec; `make_hard_dataset` also writes the images, as `.npy` (uint8 RGB,
-no codec) or through cv2 (with the figures painted, as the JAX version
-does).
+`hard_annotations` builds the COCO annotation dict; `make_hard_dataset`
+also writes the images, as `.npy` (uint8 RGB, unpainted) or as JPEG / PNG
+through the port's codec (`data/codec.py`), with the figures painted as
+the JAX version paints them. The annotations are the JAX package's; the
+painted pixels are not its pixels: the limbs are the numpy 3-pixel lines
+of `data/draw.py` (cv2.line at thickness 2 in the JAX package), the
+joints the same filled circles, and the JPEG is the codec's.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import COCO_KEYPOINTS, COCO_PERSON_SKELETON
+from . import codec
+from .draw import circle, line3
 
 # upright stick figure in a 1x1 box (x, y), COCO keypoint order
 TEMPLATE = np.array([
@@ -62,16 +67,16 @@ def _make_person(rng, h, w, box):
     return out
 
 
-def _paint(img, kps):
-    import cv2
+def paint_figures(img, kps):
+    """The JAX package's figure painting (its colours, in cv2's BGR
+    order) with the numpy primitives."""
+    pts = kps[:, :2].astype(int)
     for a, b in DRAW_LIMBS:
         if kps[a, 2] > 0 and kps[b, 2] > 0:
-            cv2.line(img, tuple(kps[a, :2].astype(int)),
-                     tuple(kps[b, :2].astype(int)), (210, 60, 60), 2)
+            line3(img, pts[a], pts[b], (210, 60, 60))
     for j in range(17):
         if kps[j, 2] > 0:
-            cv2.circle(img, tuple(kps[j, :2].astype(int)), 3,
-                       (60, 200, 60), -1)
+            circle(img, pts[j, 0], pts[j, 1], 3, (60, 200, 60))
     return img
 
 
@@ -170,8 +175,10 @@ def make_hard_dataset(root: str, n_images: int = 100, seed: int = 0,
                       paint: bool = True, ext: str = 'jpg'
                       ) -> Tuple[str, str]:
     """Write the benchmark's images and annotations under `root`; returns
-    (image_dir, annotation_file). `ext='npy'` stores uint8 RGB arrays and
-    needs no codec (and paints nothing); other extensions go through cv2."""
+    (image_dir, annotation_file). `ext='npy'` stores the unpainted uint8
+    RGB arrays; `'jpg'` (quality 95, 4:2:0) and `'png'` go through the
+    codec, painted unless `paint` is False. The arrays are in cv2's BGR
+    order, as in the JAX package, so the RGB written is their reverse."""
     img_dir = os.path.join(root, 'images')
     os.makedirs(img_dir, exist_ok=True)
 
@@ -180,11 +187,10 @@ def make_hard_dataset(root: str, n_images: int = 100, seed: int = 0,
         if ext == 'npy':
             np.save(path, img)
             return
-        import cv2
         if paint:
             for kps in persons:
-                _paint(img, kps)
-        cv2.imwrite(path, img)
+                paint_figures(img, kps)
+        codec.imwrite(path, img[:, :, ::-1])
 
     ds = hard_annotations(n_images, seed, ext, on_image=save)
     return img_dir, write_annotations(root, ds)

@@ -7,8 +7,8 @@ rescales to height `long_edge` and pads the width up to a multiple of
 orders images by aspect ratio and flushes a partial batch when the padded
 shape changes. uint8 goes to the device, normalization runs there, and
 flip-test doubles the batch inside the infer function. Images are read
-with `data/coco.py::read_image` (`.npy` without a codec, other formats
-through cv2).
+with `data/coco.py::read_image` (JPEG and PNG through the port's codec,
+`.npy` with numpy).
 """
 from __future__ import annotations
 

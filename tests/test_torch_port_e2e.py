@@ -18,7 +18,7 @@ from offsetguided_tpu.config.defaults import DecoderConfig as JDecoderConfig
 from offsetguided_tpu.config.defaults import EvalConfig as JEvalConfig
 from offsetguided_tpu.decoder import PostProcessor as JPostProcessor
 from offsetguided_tpu.eval import harness as jharness
-from offsetguided_tpu_torch.cli.serve import Batcher, ServeConfig, build_infer
+from offsetguided_tpu_torch.cli.serve import Batcher, build_infer, cli
 from offsetguided_tpu_torch.config.defaults import DecoderConfig, EvalConfig
 from offsetguided_tpu_torch.data import transforms as T
 from offsetguided_tpu_torch.decoder import PostProcessor
@@ -89,8 +89,9 @@ def test_preprocess_matches_jax():
 
 
 def test_batcher_answers_requests_on_cpu():
-    args = ServeConfig(long_edge=64, batch_size=2, batch_window_ms=20.0,
-                       topk=8, person_thre=0.01)
+    args = cli(['--long-edge', '64', '--batch-size', '2',
+                '--batch-window-ms', '20', '--topk', '8',
+                '--person-thre', '0.01'])
     _, cfg = tiny()
     infer, skeleton, ecfg, _ = build_infer(args, cfg, device='cpu', seed=3)
     batcher = Batcher(infer, ecfg.batch_size, args.batch_window_ms, 'cpu')
