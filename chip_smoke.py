@@ -28,6 +28,18 @@ batch 8, bf16):
   kernels), the trained model's records equal to the plain versions';
 - one fp32 train step of a tiny model, card against CPU, on a seeded
   batch and on a host-route batch;
+- the CrowdPose configuration (14 keypoints, 17 limbs; the grouping
+  kernel's general build): `[crowdpose]` serving at full width, flip off
+  and on, with every kernel held against its plain version at M = 8 * 14
+  and a J = 14 crowd at capacity 128; `[crowdpose oracle]` (99 scenes,
+  upsampled and stride-resolution decode, card APs equal to the CPU's
+  plain path); `[crowdpose evaluate]` (`cli.evaluate --dataset crowdpose`,
+  fixed height + flip and lowres); `[crowdpose serve http]`; `[train
+  crowdpose]` (4 full-width steps);
+- the 4-stage backbone: `[train 4stage]` (`cli.train --basenet
+  hourglass4stage` at the JAX CLI's defaults, 8 steps, host route, 4
+  loader processes, validation) and `[4stage reference]` (fp32 eval
+  forward and an fp64 step card vs CPU, and the 3x3 tower heads);
 - the port's JPEG / PNG codec built on the card's host (`[codec]`: pinned
   body and pixel digests, decode ms), and the serving front end and its
   tools: `cli.serve`'s HTTP server on port 0 (48 concurrent JPEG POSTs,
@@ -175,16 +187,16 @@ def peak_inputs(b: int, h: int, w: int, skeleton):
     }
 
 
-def crowd_limbs(n_img: int, K: int, seed: int, L: int = L):
-    """(n_img, L, K, 13) float32 packed limbs of a dense crowd on the COCO
-    skeleton's first L limbs: 9 in 10 candidates valid, keypoint indices
-    per joint drawn from a pool of 2K, so that rows extend, collide, merge
-    and run out of free rows; scores quantized to hundredths, so that ties
-    are common."""
+def crowd_limbs(n_img: int, K: int, seed: int, L: int = L, skeleton=None):
+    """(n_img, L, K, 13) float32 packed limbs of a dense crowd on the first
+    L limbs of `skeleton` (default COCO's): 9 in 10 candidates valid,
+    keypoint indices per joint drawn from a pool of 2K, so that rows
+    extend, collide, merge and run out of free rows; scores quantized to
+    hundredths, so that ties are common."""
     from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
     rng = np.random.RandomState(seed)
     out = np.zeros((n_img, L, K, 13), np.float32)
-    for l, (jf, jt) in enumerate(COCO_PERSON_SKELETON[:L]):
+    for l, (jf, jt) in enumerate((skeleton or COCO_PERSON_SKELETON)[:L]):
         shape = (n_img, K)
         out[:, l, :, 0:2] = rng.uniform(1, 600, shape + (2,))
         out[:, l, :, 2] = rng.uniform(0.1, 1, shape)
@@ -354,6 +366,150 @@ def with_sentinels(packed):
     return x
 
 
+# CrowdPose-style scenes: the template and placements of the JAX package's
+# tests/test_crowdpose_e2e.py, rebuilt without JAX for the card
+# (`[crowdpose oracle]`, `[crowdpose evaluate]`, `[train crowdpose]`);
+# tests/test_torch_port_crowdpose.py holds them equal to that test's, and
+# `crowdpose_oracle` on the CPU equal to the JAX package's oracle loop.
+J14, L17 = 14, 17
+TEMPLATE14 = np.array([
+    [0.36, 0.22], [0.64, 0.22], [0.32, 0.40], [0.68, 0.40],
+    [0.30, 0.57], [0.70, 0.57], [0.41, 0.54], [0.59, 0.54],
+    [0.40, 0.75], [0.60, 0.75], [0.39, 0.95], [0.61, 0.95],
+    [0.50, 0.02], [0.50, 0.16]], dtype=np.float32)
+CROWDPOSE_SCENES = (                   # (crowdIndex, (x0, y0, box) each)
+    (0.00, ((60, 40, 150),)),
+    (0.05, ((20, 30, 140), (170, 60, 120))),
+    (0.40, ((10, 30, 120), (150, 60, 110))),
+    (0.50, ((30, 10, 130), (180, 40, 100))),
+    (0.90, ((20, 20, 140), (110, 40, 130), (210, 30, 90))),
+    (0.95, ((40, 30, 150), (150, 50, 120))),
+)
+# the JAX test's decode settings for these scenes, at 160^2
+CROWDPOSE_DECODE = dict(topk=12, thre_hmp=0.1, dist_max=20.0, use_scale=False,
+                        person_thre=0.1, max_poses=8)
+CROWDPOSE_SIZE = 160
+
+
+def crowdpose_persons(placements, seed: int = 11) -> np.ndarray:
+    """(P, 14, 3) keypoints of upright figures at absolute positions."""
+    jig = np.random.RandomState(seed)
+    kps = np.zeros((len(placements), J14, 3), np.float32)
+    for i, (x0, y0, box) in enumerate(placements):
+        kps[i, :, 0] = x0 + TEMPLATE14[:, 0] * box + jig.rand(J14) * 0.73
+        kps[i, :, 1] = y0 + TEMPLATE14[:, 1] * box + jig.rand(J14) * 0.73
+        kps[i, :, 2] = 2
+    return kps
+
+
+def crowdpose_annotations(scenes, ext: str = 'jpg'):
+    """COCO-style annotations of 320x256 `scenes` with each image's
+    crowdIndex, as the JAX test's fixture writes them, and {image id:
+    (P, 14, 3) keypoints}."""
+    images, annotations, gt_kps = [], [], {}
+    ann_id = 1
+    for img_id, (ci, placements) in enumerate(scenes, start=1):
+        kps = crowdpose_persons(placements, seed=img_id)
+        gt_kps[img_id] = kps
+        for k in kps:
+            bx, by = k[:, 0].min() - 3, k[:, 1].min() - 3
+            bw = k[:, 0].max() - k[:, 0].min() + 6
+            bh = k[:, 1].max() - k[:, 1].min() + 6
+            annotations.append({
+                'id': ann_id, 'image_id': img_id, 'category_id': 1,
+                'keypoints': k.reshape(-1).tolist(), 'num_keypoints': J14,
+                'iscrowd': 0,
+                'bbox': [float(bx), float(by), float(bw), float(bh)],
+                'area': float(bw * bh * 0.6),
+            })
+            ann_id += 1
+        images.append({'id': img_id, 'file_name': f'{img_id:06d}.{ext}',
+                       'height': 256, 'width': 320, 'crowdIndex': ci})
+    return ({'images': images, 'annotations': annotations,
+             'categories': [{'id': 1, 'name': 'person'}]}, gt_kps)
+
+
+def crowdpose_scenes(n: int, seed: int):
+    """`n` scenes in the manner of CROWDPOSE_SCENES: image i % 3 is easy
+    (crowdIndex below 0.1, 1-2 persons), medium (0.1-0.8, 2-3) or hard
+    (0.8-1.0, 3-4), persons of 90-150 px placed at random in the
+    320x256 image."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        band = i % 3
+        ci = float(np.round(rng.uniform(*((0.0, 0.1), (0.1, 0.8),
+                                          (0.8, 1.0))[band]), 3))
+        placements = []
+        for _ in range(1 + band + rng.randint(2)):
+            box = float(rng.randint(90, 151))
+            placements.append((float(rng.randint(0, int(320 - 0.7 * box))),
+                               float(rng.randint(0, int(256 - box))), box))
+        out.append((ci, tuple(placements)))
+    return tuple(out)
+
+
+def crowdpose_oracle(ann_file: str, dev, upsampled: bool = True,
+                     batch: int = 16):
+    """The CrowdPose GT oracle through the port: each person image's
+    annotations rescaled and padded to 160^2, GT encoded on `dev`,
+    decoded there (the kernels on a CUDA device, the plain versions on
+    the CPU) in batches, inverse transformed, and scored by
+    `evaluate_crowdpose_keypoints`. Returns (results, stats, launches):
+    the kernels launched by the decode, read around it."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import (
+        DecoderConfig, EncoderConfig, SkeletonConfig)
+    from offsetguided_tpu_torch.data import transforms as T
+    from offsetguided_tpu_torch.data.coco import CocoJson
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.eval.cocoeval import \
+        evaluate_crowdpose_keypoints
+    from offsetguided_tpu_torch.eval.harness import poses_to_coco_results
+    from offsetguided_tpu_torch.ops.encoder import encode_targets
+
+    sk = SkeletonConfig.crowdpose()
+    size = CROWDPOSE_SIZE
+    pp = PostProcessor(skeleton=sk, cfg=DecoderConfig(
+        upsampled_decode=upsampled, **CROWDPOSE_DECODE))
+    coco = CocoJson(ann_file)
+    ids = coco.image_ids(with_persons=True)
+    padded, metas = [], []
+    for img_id in ids:
+        info = coco.image_info(img_id)
+        anns = T.normalize_annotations(coco.anns_for_image(img_id),
+                                       sk.sigmas, n_keypoints=J14)
+        meta = T.make_meta(info['width'], info['height'])
+        dummy = np.zeros((info['height'], info['width'], 3), np.uint8)
+        img2, anns, meta = T.rescale_long_absolute(dummy, anns, meta, size)
+        _, anns, meta = T.center_pad(img2, anns, meta, size)
+        p = np.zeros((8, J14, 4), np.float32)
+        p[:len(anns)] = anns[:8]
+        padded.append(p)
+        metas.append(meta)
+    results, launches = [], {k: 0 for k in KERNELS}
+    for b0 in range(0, len(ids), batch):
+        anns = torch.from_numpy(np.stack(padded[b0:b0 + batch])).to(dev)
+        with torch.inference_mode():
+            t = encode_targets(anns, sk.sigmas, sk.skeleton, size // 4,
+                               size // 4, EncoderConfig(max_persons=8))
+            preds = {'hmp': [t.hmp], 'jomp': [t.jomp], 'omp': [t.omp],
+                     'scmp': [None]}
+            if dev.type == 'cuda':
+                reset_launches()
+            poses, _, counts = pp.decode_body(preds)
+            poses, counts = poses.cpu().numpy(), counts.cpu().numpy()
+            if dev.type == 'cuda':
+                launches = {k: launches[k] + v
+                            for k, v in read_launches().items()}
+        for i, img_id in enumerate(ids[b0:b0 + batch]):
+            inv = T.annotations_inverse(poses[i][:int(counts[i])],
+                                        metas[b0 + i])
+            results.extend(poses_to_coco_results(inv, img_id))
+    stats = evaluate_crowdpose_keypoints(coco, results, np.asarray(sk.sigmas))
+    return results, stats, launches
+
+
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
@@ -454,6 +610,29 @@ def ptxas_lines(report: str):
                 out.append(f'{fn}: ' + '; '.join(props))
                 fn, props = None, []
     return out
+
+
+def library_peaks(maps):
+    """The fused peaks kernel's function in PyTorch calls on (M, h, w)
+    maps: bicubic x4, 3x3 NMS by `max_pool2d`, `torch.topk`."""
+    import torch
+    import torch.nn.functional as F
+    up = F.interpolate(maps[:, None], scale_factor=STRIDE, mode='bicubic',
+                       align_corners=False)
+    hmax = F.max_pool2d(F.pad(up, (1, 1, 1, 1)), 3, stride=1)
+    nms = torch.where(hmax == up, up, torch.zeros_like(up))
+    return torch.topk(nms.reshape(maps.shape[0], -1), TOPK)
+
+
+def library_nms_topk(maps):
+    """The NMS + top-k kernel's function in PyTorch calls on (M, h, w)
+    maps: zero-padded 3x3 NMS by `max_pool2d`, `torch.topk`."""
+    import torch
+    import torch.nn.functional as F
+    x = maps[:, None]
+    hmax = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, stride=1)
+    nms = torch.where(hmax == x, x, torch.zeros_like(x))
+    return torch.topk(nms.reshape(maps.shape[0], -1), TOPK)
 
 
 def phase_build():
@@ -775,7 +954,6 @@ def phase_main_path_kernels(skeleton, serve, images, records):
     held against their plain versions, and timed with the plain versions
     and, for peaks, the library chain. These launches are not counted."""
     import torch
-    import torch.nn.functional as F
     from offsetguided_tpu_torch.ops import grouping as plain
     from offsetguided_tpu_torch.ops.cuda import grouping, peaks
     from offsetguided_tpu_torch.ops.image import normalize_images
@@ -799,16 +977,9 @@ def phase_main_path_kernels(skeleton, serve, images, records):
     if err != 0.0:
         fail(f'peaks kernel values differ from plain on the main path by {err}')
 
-    def library():
-        up = F.interpolate(maps[:, None], scale_factor=STRIDE, mode='bicubic',
-                           align_corners=False)
-        hmax = F.max_pool2d(F.pad(up, (1, 1, 1, 1)), 3, stride=1)
-        nms = torch.where(hmax == up, up, torch.zeros_like(up))
-        return torch.topk(nms.reshape(b, -1), TOPK)
-
     ms = cuda_time(lambda: peaks.peaks_topk(maps, TOPK), 20)
     plain_ms = cuda_time(lambda: peaks.peaks_topk_plain(maps, TOPK), 5)
-    lib_ms = cuda_time(library, 10)
+    lib_ms = cuda_time(lambda: library_peaks(maps), 10)
     split = launch_split(lambda: peaks.peaks_topk(maps, TOPK))
     H, W = h * STRIDE, w * STRIDE
     n_bytes = maps.numel() * 4 + b * TOPK * 12
@@ -1079,7 +1250,6 @@ def phase_nms_topk(dev, serve, records):
     version, timed with it, with max_pool2d NMS + torch.topk, and as the
     route runs it (the copy + the kernel + the index math)."""
     import torch
-    import torch.nn.functional as F
     from offsetguided_tpu_torch.ops.cuda import nms_topk
     from offsetguided_tpu_torch.ops.image import normalize_images
 
@@ -1114,12 +1284,6 @@ def phase_nms_topk(dev, serve, records):
     log(f'[nms_topk] model heatmaps {tuple(hmp.shape)} stride {hmp.stride()}'
         f': identical to plain')
 
-    def library():
-        x = maps[:, None]
-        hmax = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, stride=1)
-        nms = torch.where(hmax == x, x, torch.zeros_like(x))
-        return torch.topk(nms.reshape(n * c, -1), TOPK)
-
     def route():                                 # as ops/decoder.py runs it
         x = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w)
         vals, flat = nms_topk.nms_topk(x, TOPK)
@@ -1128,7 +1292,7 @@ def phase_nms_topk(dev, serve, records):
 
     ms = cuda_time(lambda: nms_topk.nms_topk(maps, TOPK), 20)
     plain_ms = cuda_time(lambda: nms_topk.nms_topk_plain(maps, TOPK), 5)
-    lib_ms = cuda_time(library, 20)
+    lib_ms = cuda_time(lambda: library_nms_topk(maps), 20)
     with torch.inference_mode():
         route_ms = cuda_time(route, 20)
         copy_ms = cuda_time(lambda: hmp.permute(0, 3, 1, 2).reshape(
@@ -1374,21 +1538,15 @@ def phase_train_profile(dev, img_dir, ann):
     (H2D from pinned memory, the warp + photometric + annotation pass, GT
     encoding, mask downscaling; mean of 3 batches after one warm-up), and
     one train step under torch.profiler by kernel category, with the
-    device's idle share."""
+    device's idle share, for Hourglass-104 and for the 4-stage net (2
+    stacks, the JAX CLI's default)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from offsetguided_tpu_torch.config.defaults import (
-        AugmentationConfig, EncoderConfig, LossConfig, ModelConfig,
-        SkeletonConfig, TrainConfig)
+        AugmentationConfig, EncoderConfig, ModelConfig, SkeletonConfig)
     from offsetguided_tpu_torch.data import pipeline
-    from offsetguided_tpu_torch.models import PoseNet
-    from offsetguided_tpu_torch.models.network import init_reference_
     from offsetguided_tpu_torch.ops.augment import augment_batch_dict
     from offsetguided_tpu_torch.ops.encoder import (downscale_mask,
                                                     encode_targets)
-    from offsetguided_tpu_torch.parallel.train_step import (TrainStep,
-                                                            make_optimizer)
 
     sk = SkeletonConfig()
     enc = EncoderConfig()
@@ -1426,11 +1584,29 @@ def phase_train_profile(dev, img_dir, ann):
         f'{TRAIN_BATCH} (one thread, host clock); feed by CUDA events: '
         + ', '.join(f'{k} {v:.2f} ms' for k, v in parts.items()))
 
-    model = init_reference_(PoseNet(ModelConfig()),
-                            torch.Generator().manual_seed(0))
+    for tag, cfg in (('Hourglass-104', ModelConfig()), (
+            'Hourglass-4stage', ModelConfig(basenet='hourglass4stage'))):
+        profile_train_step(dev, tag, cfg, imgs, targets, mask)
+
+
+def profile_train_step(dev, tag, cfg, imgs, targets, mask):
+    """One train step (forward + backward + Adam, `init_reference_`
+    weights, after two) of `cfg` on a fed batch under torch.profiler: wall
+    and busy ms, the device's idle share, and device time by kernel
+    category."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from offsetguided_tpu_torch.config.defaults import (LossConfig,
+                                                        TrainConfig)
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.models.network import init_reference_
+    from offsetguided_tpu_torch.parallel.train_step import (TrainStep,
+                                                            make_optimizer)
+    model = init_reference_(PoseNet(cfg), torch.Generator().manual_seed(0))
     model = model.to(dev, memory_format=torch.channels_last)
     step = TrainStep(model, make_optimizer(TrainConfig(), model.parameters()),
-                     LossConfig(stack_weights=(1.0, 1.0)))
+                     LossConfig(stack_weights=(1.0,) * cfg.n_stacks))
     for _ in range(2):
         step(imgs, targets, mask)
     torch.cuda.synchronize()
@@ -1444,8 +1620,8 @@ def phase_train_profile(dev, img_dir, ann):
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     if not kernels:
-        log('[train profile] the profiler recorded no device time: not '
-            'measured')
+        log(f'[train profile] {tag}: the profiler recorded no device time: '
+            f'not measured')
         return
     cats = {}
     for name, ms, _ in kernels:
@@ -1461,9 +1637,9 @@ def phase_train_profile(dev, img_dir, ann):
             cat = 'elementwise and copies'
         cats[cat] = cats.get(cat, 0.0) + ms
     busy = sum(cats.values())
-    log(f'[train profile] one step (forward + backward + Adam, profiler on): '
-        f'wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share '
-        f'{1 - busy / wall_ms:.3f}')
+    log(f'[train profile] {tag}, one step (forward + backward + Adam, '
+        f'profiler on): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, '
+        f'idle share {1 - busy / wall_ms:.3f} | {card_line()}')
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         log(f'[train profile]   {cat}: {ms:.2f} ms ({ms / busy:.1%} of busy)')
     for name, ms, n in sorted(kernels, key=lambda r: -r[1])[:12]:
@@ -1529,12 +1705,14 @@ VAL_IMAGES = 16
 SELFCHECK_BAR = 0.7           # AP, with AP50 = AP75 = 1.0 (cli/selfcheck.py)
 
 
-def train_summary(tag, hist, wall, peak, ckpt):
+def train_summary(tag, hist, wall, peak, ckpt, steps=TRAIN_STEPS,
+                  net='Hourglass-104', falling=True):
     """Checks a full-width run's records (finite losses, no skipped step,
-    a falling heatmap loss, a checkpoint) and prints its img/s over steps
-    3-12 and at the median step, the step split and the host wait."""
-    if len(hist) != TRAIN_STEPS:
-        fail(f'{tag}: {len(hist)} step records, not {TRAIN_STEPS}')
+    where `falling` a falling heatmap loss, a checkpoint) and prints its
+    img/s over steps 3-`steps` and at the median step, the step split and
+    the host wait."""
+    if len(hist) != steps:
+        fail(f'{tag}: {len(hist)} step records, not {steps}')
     bad = [h['step'] for h in hist
            if not all(np.isfinite(h[k]) for k in ('total', 'hmp', 'bg',
                                                   'jomp', 'omp', 'scmp'))]
@@ -1543,19 +1721,19 @@ def train_summary(tag, hist, wall, peak, ckpt):
     if any(h['skipped'] != 0.0 for h in hist):
         fail(f'{tag}: skipped steps '
              f'{[h["step"] for h in hist if h["skipped"]]}')
-    if not hist[-1]['hmp'] < hist[0]['hmp']:
+    if falling and not hist[-1]['hmp'] < hist[0]['hmp']:
         fail(f'{tag}: heatmap loss did not fall: step 1 {hist[0]["hmp"]}, '
-             f'step {TRAIN_STEPS} {hist[-1]["hmp"]}')
+             f'step {steps} {hist[-1]["hmp"]}')
     if not (ckpt and os.path.isfile(ckpt)):
         fail(f'{tag}: no checkpoint ({ckpt})')
-    timed = hist[2:]                 # steps 3..12
+    timed = hist[2:]                 # steps 3..steps
     rate = TRAIN_BATCH * len(timed) / (timed[-1]['t'] - hist[1]['t'])
     gaps = sorted(b['t'] - a['t'] for a, b in zip(hist[1:], hist[2:]))
     med = gaps[len(gaps) // 2]
     mean = lambda k: sum(h[k] for h in timed) / len(timed)
-    log(f'[{tag}] Hourglass-104 {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, '
-        f'{TRAIN_STEPS} steps: {rate:.2f} img/s (host clock over steps '
-        f'3-{TRAIN_STEPS}, with the epoch-end work after steps 4 and 8); '
+    log(f'[{tag}] {net} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, '
+        f'{steps} steps: {rate:.2f} img/s (host clock over steps '
+        f'3-{steps}, with the epoch-end work after each 4th step); '
         f'{TRAIN_BATCH / med:.2f} img/s at the median step ({med * 1e3:.1f} '
         f'ms); per step feed {mean("feed_ms"):.2f} ms, forward + backward + '
         f'optimizer {mean("step_ms"):.2f} ms (CUDA events), host wait '
@@ -1742,12 +1920,13 @@ def host_route_feed(root):
     return feed
 
 
-def train_one_step_errors(dev, feed, dtype: str = 'float32'):
-    """One SGD step (TF32 off) of the tiny model in `dtype` on the card and
-    on the CPU, from the same weights, on `feed(device)`'s batch: the
-    largest relative loss error, gradient error (|diff| - 1e-3 |g|, over
-    the largest gradient), BatchNorm statistics error, and the skipped
-    flags."""
+def train_one_step_errors(dev, feed, dtype: str = 'float32',
+                          model_kw=TINY_TRAIN):
+    """One SGD step (TF32 off) of the model of `model_kw` (default the
+    tiny one) in `dtype` on the card and on the CPU, from the same
+    weights, on `feed(device)`'s batch: the largest relative loss error,
+    gradient error (|diff| - 1e-3 |g|, over the largest gradient),
+    BatchNorm statistics error, and the skipped flags."""
     import torch
     from offsetguided_tpu_torch.config.defaults import (LossConfig,
                                                         ModelConfig,
@@ -1758,7 +1937,7 @@ def train_one_step_errors(dev, feed, dtype: str = 'float32'):
     from offsetguided_tpu_torch.parallel.train_step import (TrainStep,
                                                             make_optimizer)
 
-    cfg = ModelConfig(**dict(TINY_TRAIN, compute_dtype=dtype))
+    cfg = ModelConfig(**dict(model_kw, compute_dtype=dtype))
     init = init_reference_(PoseNet(cfg), torch.Generator().manual_seed(0))
     lr = 1e-3
     out = {}
@@ -1885,83 +2064,89 @@ def phase_serve_http(dev):
     on port 0 in a thread, upsampled and `--lowres-decode`: 48 concurrent
     POSTs of codec JPEGs of the hard set's mixed sizes; every answer 200
     with poses of 17 keypoints; each mode's kernels launched."""
-    import torch
-    import urllib.request
-    from offsetguided_tpu_torch.cli import serve
-    from offsetguided_tpu_torch.cli.bench_serve import (make_test_jpegs,
-                                                        percentiles)
+    from offsetguided_tpu_torch.cli.bench_serve import make_test_jpegs
 
     bodies = make_test_jpegs(SERVE_REQUESTS, seed=1)
     modes = {'serve_http': ([], ('peaks', 'grouping'), ('topk', 'nms_topk')),
              'serve_http_lowres': (['--lowres-decode'],
                                    ('nms_topk', 'grouping'),
                                    ('peaks', 'topk'))}
-    launches = {}
-    for path, (extra, need, never) in modes.items():
-        args = serve.cli(['--port', '0', '--request-timeout-s', '120']
-                         + extra)
-        infer, skeleton, ecfg, _ = serve.build_infer(
-            args, serve.model_config(args), None, dev)
-        s = ecfg.long_edge
-        infer(torch.zeros((ecfg.batch_size, s, s, 3), dtype=torch.uint8,
-                          device=dev))[2].cpu()
-        srv = serve.make_server(args, infer, skeleton, ecfg)
-        thread = threading.Thread(target=srv.serve_forever, daemon=True)
-        thread.start()
-        url = 'http://%s:%d' % srv.server_address[:2]
-        answers, lats = [None] * len(bodies), [None] * len(bodies)
+    return {path: serve_burst(dev, path, extra, need, never, bodies, J)
+            for path, (extra, need, never) in modes.items()}
 
-        def post(i):
-            req = urllib.request.Request(url + '/v1/poses', data=bodies[i],
-                                         headers={'Content-Type':
-                                                  'image/jpeg'})
-            t0 = time.perf_counter()
-            try:
-                with urllib.request.urlopen(req, timeout=300) as r:
-                    answers[i] = (r.status, json.loads(r.read()))
-            except Exception as e:  # reported below; the phase then fails
-                answers[i] = (None, repr(e))
-            lats[i] = time.perf_counter() - t0
 
-        reset_launches()
-        threads = [threading.Thread(target=post, args=(i,))
-                   for i in range(len(bodies))]
+def serve_burst(dev, path, extra, need, never, bodies, n_kp) -> dict:
+    """One full-width `cli.serve` server (its flags plus `extra`) on port 0
+    in a thread, `bodies` POSTed at once: every answer 200 with poses of
+    `n_kp` keypoints, the kernels of `need` launched and none of `never`.
+    Returns the path's launches."""
+    import torch
+    import urllib.request
+    from offsetguided_tpu_torch.cli import serve
+    from offsetguided_tpu_torch.cli.bench_serve import percentiles
+
+    args = serve.cli(['--port', '0', '--request-timeout-s', '120'] + extra)
+    infer, skeleton, ecfg, _ = serve.build_infer(args, device=dev)
+    s = ecfg.long_edge
+    infer(torch.zeros((ecfg.batch_size, s, s, 3), dtype=torch.uint8,
+                      device=dev))[2].cpu()
+    srv = serve.make_server(args, infer, skeleton, ecfg)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = 'http://%s:%d' % srv.server_address[:2]
+    answers, lats = [None] * len(bodies), [None] * len(bodies)
+
+    def post(i):
+        req = urllib.request.Request(url + '/v1/poses', data=bodies[i],
+                                     headers={'Content-Type': 'image/jpeg'})
         t0 = time.perf_counter()
         try:
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(600)
-            wall = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            launches[path] = read_launches()
-            with urllib.request.urlopen(url + '/metrics', timeout=30) as r:
-                m = json.loads(r.read())
-        finally:
-            srv.shutdown()
-            srv.server_close()
-        bad = [a for a in answers if a is None or a[0] != 200]
-        if bad:
-            fail(f'{path}: {len(bad)} of {len(bodies)} requests failed: '
-                 f'{bad[:3]}')
-        n_poses = [len(a[1]['poses']) for a in answers]
-        if any(n == 0 for n in n_poses) or any(
-                len(p['keypoints']) != J for a in answers
-                for p in a[1]['poses']):
-            fail(f'{path}: an answer without poses of {J} keypoints: '
-                 f'{n_poses}')
-        check_launches(path, launches[path], need, never)
-        pct = percentiles(lats)
-        log(f'[serve http] {path}: {len(bodies)} concurrent POSTs of '
-            f'{len(set(a[1]["image"]["width"] for a in answers))}-width '
-            f'JPEGs all 200, poses per answer {min(n_poses)}-{max(n_poses)}; '
-            f'{len(bodies) / wall:.2f} QPS (host clock, one burst), client '
-            f'p50 {pct["p50"]:.1f} / p90 {pct["p90"]:.1f} / p99 '
-            f'{pct["p99"]:.1f} ms, mean batch fill {m["mean_batch_fill"]}, '
-            f'device-batch p50 {m["device_batch_latency_ms"]["p50"]} ms over '
-            f'{m["batches"]} batches, kernel launches {launches[path]}')
-        del infer, srv
-        torch.cuda.empty_cache()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers[i] = (r.status, json.loads(r.read()))
+        except Exception as e:  # reported below; the phase then fails
+            answers[i] = (None, repr(e))
+        lats[i] = time.perf_counter() - t0
+
+    reset_launches()
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with urllib.request.urlopen(url + '/metrics', timeout=30) as r:
+            m = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    bad = [a for a in answers if a is None or a[0] != 200]
+    if bad:
+        fail(f'{path}: {len(bad)} of {len(bodies)} requests failed: '
+             f'{bad[:3]}')
+    n_poses = [len(a[1]['poses']) for a in answers]
+    if any(n == 0 for n in n_poses) or any(
+            len(p['keypoints']) != n_kp for a in answers
+            for p in a[1]['poses']):
+        fail(f'{path}: an answer without poses of {n_kp} keypoints: '
+             f'{n_poses}')
+    check_launches(path, launches, need, never)
+    pct = percentiles(lats)
+    log(f'[serve http] {path}: {len(bodies)} concurrent POSTs of '
+        f'{len(set(a[1]["image"]["width"] for a in answers))}-width '
+        f'JPEGs all 200, poses of {n_kp} keypoints, '
+        f'{min(n_poses)}-{max(n_poses)} an answer; '
+        f'{len(bodies) / wall:.2f} QPS (host clock, one burst), client '
+        f'p50 {pct["p50"]:.1f} / p90 {pct["p90"]:.1f} / p99 '
+        f'{pct["p99"]:.1f} ms, mean batch fill {m["mean_batch_fill"]}, '
+        f'device-batch p50 {m["device_batch_latency_ms"]["p50"]} ms over '
+        f'{m["batches"]} batches, kernel launches {launches}')
+    del infer, srv
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2105,6 +2290,426 @@ def phase_tools_profile():
     return {'profile_decode': launches}
 
 
+# --------------------------------------------------------------------------- #
+# the CrowdPose configuration and the 4-stage backbone
+# --------------------------------------------------------------------------- #
+
+CROWDPOSE_ORACLE_IMAGES = 99       # 33 a crowdIndex band
+FOUR_STAGE_STEPS, CROWDPOSE_TRAIN_STEPS = 8, 4
+
+
+def crowdpose_selection_maps(model, dev):
+    """The CrowdPose model's (8 * 14, h, w) maps for the selection kernels:
+    its square 640^2 heatmaps, and the 2x2 block maxima of its NMS'd x4
+    heatmaps at 640x1024 (the fixed-height route's top-k input)."""
+    import torch
+    import torch.nn.functional as F
+    from offsetguided_tpu_torch.ops import decoder as dec
+    from offsetguided_tpu_torch.ops.image import normalize_images
+    from offsetguided_tpu_torch.ops.resize import upsample2d
+    square = torch.from_numpy(np.random.RandomState(21).randint(
+        0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
+    wide = torch.from_numpy(fixed_height_images(N_IMG, 22)).to(dev)
+    with torch.inference_mode():
+        hmp = model(normalize_images(square))['hmp'][-1]
+        n, h, w, c = hmp.shape
+        maps = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous()
+        hw = model(normalize_images(wide))['hmp'][-1]
+        nmsed = dec.hmp_nms(upsample2d(hw, STRIDE, 'bicubic'))
+        bm = F.max_pool2d(nmsed.permute(0, 3, 1, 2), 2, stride=2)
+        bm = bm.reshape(bm.shape[0] * bm.shape[1], -1).contiguous()
+    return maps, bm
+
+
+def phase_crowdpose(dev, records):
+    """CrowdPose at full width: Hourglass-104 with 14 / 17 heads
+    (`random_posenet`, calibrated at 640^2) served through `build_infer`
+    at batch 8, 640^2, flip off and on (each path with its own launch
+    counts); peaks bit-equal to plain on the model's (112, 160, 160) maps,
+    the general grouping build held against plain on the served limbs and
+    on a J = 14 crowd at capacity 128, and timed (with, on the same limbs,
+    the J = 17 build over the joints padded to 17); block top-k and NMS +
+    top-k at M = 112 on the model's maps; the flip-on decode kernel vs
+    plain end to end. Returns the paths' launches."""
+    import torch
+    from offsetguided_tpu_torch.cli.serve import build_infer, cli
+    from offsetguided_tpu_torch.config.defaults import SkeletonConfig
+    from offsetguided_tpu_torch.eval.harness import make_infer_fn
+    from offsetguided_tpu_torch.ops import grouping as plain
+    from offsetguided_tpu_torch.ops.cuda import grouping, nms_topk, peaks, topk
+    from offsetguided_tpu_torch.ops.image import normalize_images
+
+    sk = SkeletonConfig.crowdpose().skeleton
+    infer, skeleton, _, model = build_infer(cli(['--dataset', 'crowdpose']),
+                                            device=dev, seed=0)
+    pp = infer.postprocessor
+    images = torch.from_numpy(np.random.RandomState(17).randint(
+        0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
+    infers = {False: infer, True: make_infer_fn(model, pp, True)}
+    launches = {}
+    for flip in (False, True):
+        path = 'crowdpose_flip_on' if flip else 'crowdpose_flip_off'
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        for _ in range(2):
+            infers[flip](images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            poses, scores, counts = infers[flip](images)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[path] = read_launches()
+        if tuple(poses.shape) != (N_IMG, 40, J14, 6):
+            fail(f'{path}: poses shape {tuple(poses.shape)}')
+        if not (torch.isfinite(poses).all() and torch.isfinite(scores).all()
+                and int(counts.sum()) > 0):
+            fail(f'{path}: non-finite poses or none')
+        check_launches(path, launches[path], ('peaks', 'grouping'),
+                       never=('topk', 'nms_topk'))
+        log(f'[crowdpose] {path}: {N_IMG * 5 / dt:.2f} img/s (host clock, '
+            f'batch {N_IMG}, {LONG_EDGE}^2, 14 keypoints, 17 limbs), counts '
+            f'{counts.tolist()}, peak memory '
+            f'{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, '
+            f'kernel launches {launches[path]} | {card_line()}')
+        if flip:
+            with plain_kernels():
+                rp, rs, rc = infers[flip](images)
+            if not (torch.equal(counts, rc)
+                    and float((poses - rp).abs().max()) <= 1e-4
+                    and float((scores - rs).abs().max()) <= 1e-5):
+                fail('crowdpose flip-on: kernel and plain decodes differ')
+            log('[crowdpose] flip-on decode: kernels and plain versions '
+                'give identical counts, poses within 1e-4')
+
+    with torch.inference_mode():
+        preds = model(normalize_images(images))
+        packed = pp.decode_packed_limbs(preds).contiguous()
+    maps, bm = crowdpose_selection_maps(model, dev)
+    b, h, w = maps.shape
+    v, ys, xs = peaks.peaks_topk(maps, TOPK)
+    pv, pys, pxs = peaks.peaks_topk_plain(maps, TOPK)
+    if not (torch.equal(ys, pys) and torch.equal(xs, pxs)
+            and torch.equal(bits(v), bits(pv))):
+        fail('peaks kernel differs from plain on the CrowdPose maps')
+    H, W = h * STRIDE, w * STRIDE
+    peaks_rec = dict(
+        shape=[b, h, w], ms=cuda_time(lambda: peaks.peaks_topk(maps, TOPK),
+                                      20),
+        plain_ms=cuda_time(lambda: peaks.peaks_topk_plain(maps, TOPK), 5),
+        library_ms=cuda_time(lambda: library_peaks(maps), 10),
+        bound=(maps.numel() * 4 + b * TOPK * 12,
+               b * (7 * H * w + 16 * H * W + 4 * (H // 2) * (W // 2))))
+    records['peaks']['crowdpose'] = peaks_rec
+
+    cfg = pp.cfg
+    err = compare_grouping('[crowdpose] grouping (general build)', packed, sk,
+                           cfg, n_keypoints=J14)
+    r = records['grouping']
+    r['max_abs_err'] = max(r['max_abs_err'], err)
+    # the same limbs through the J = 17 build: joints 14-16 never filled
+    ms17 = cuda_time(lambda: grouping.group_skeletons(packed, sk, cfg, 17),
+                     20)
+    crowd = torch.from_numpy(crowd_limbs(N_IMG, CROWD_K, seed=14, L=L17,
+                                         skeleton=sk)).to(dev)
+    ccfg = crowd_case(dev)[1]
+    r['max_abs_err'] = max(r['max_abs_err'], compare_grouping(
+        '[crowdpose] grouping crowd (general build)', crowd, sk, ccfg,
+        n_keypoints=J14))
+    M, MP, K = cfg.capacity, cfg.max_poses, packed.shape[2]
+    n = packed.shape[0]
+    group_rec = dict(
+        shape=list(packed.shape), build='group_kernel<0> (J = 14)',
+        library_ms=None,
+        ms=cuda_time(lambda: grouping.group_skeletons(packed, sk, cfg, J14),
+                     20),
+        ms_same_limbs_j17_build=ms17,
+        plain_ms=cuda_time(lambda: plain.group_skeletons(packed, sk, cfg,
+                                                         J14), 3, warmup=1),
+        ms_crowd_128=cuda_time(lambda: grouping.group_skeletons(
+            crowd, sk, ccfg, J14, ccfg.capacity), 20),
+        plain_ms_crowd_128=cuda_time(lambda: plain.group_skeletons(
+            crowd, sk, ccfg, J14, ccfg.capacity), 3, warmup=1),
+        bound=(packed.numel() * 4 + n * MP * (J14 * 6 + 1) * 4 + n * 4,
+               n * (L17 + cfg.settle_passes)
+               * (K ** 2 + 4 * M * K + M * M * J14 // 2)))
+    group_rec.update(launch_split(lambda: grouping.group_skeletons(
+        packed, sk, cfg, J14), parts=('group',)))
+    r['crowdpose'] = group_rec
+
+    tv, ti = topk.topk(bm, TOPK)
+    pv, pi = topk.topk_plain(bm, TOPK)
+    nv, ni = nms_topk.nms_topk(maps, TOPK)
+    qv, qi = nms_topk.nms_topk_plain(maps, TOPK)
+    if not (torch.equal(ti, pi) and torch.equal(bits(tv), bits(pv))
+            and torch.equal(ni, qi) and torch.equal(bits(nv), bits(qv))):
+        fail('a selection kernel differs from plain on the CrowdPose maps')
+    records['topk']['crowdpose'] = dict(
+        shape=list(bm.shape), ms=cuda_time(lambda: topk.topk(bm, TOPK), 20),
+        plain_ms=cuda_time(lambda: topk.topk_plain(bm, TOPK), 5),
+        library_ms=cuda_time(lambda: torch.topk(bm, TOPK), 20),
+        bound=(bm.numel() * 4 + bm.shape[0] * TOPK * 8, bm.numel()))
+    records['nms_topk']['crowdpose'] = dict(
+        shape=[b, h, w], ms=cuda_time(lambda: nms_topk.nms_topk(maps, TOPK),
+                                      20),
+        plain_ms=cuda_time(lambda: nms_topk.nms_topk_plain(maps, TOPK), 5),
+        library_ms=cuda_time(lambda: library_nms_topk(maps), 20),
+        bound=(maps.numel() * 4 + b * TOPK * 12, 10 * maps.numel()))
+    for key in KERNELS:
+        rec = records[key]['crowdpose']
+        nb, no = rec.pop('bound')
+        rec['bound_ms'] = max(nb / PEAK_BYTES, no / PEAK_FP32_FLOPS) * 1e3
+        lib = rec['library_ms']
+        log(f'[crowdpose] {key} {tuple(rec["shape"])} k={TOPK}: kernel '
+            f'{rec["ms"]:.4f} ms, plain {rec["plain_ms"]:.4f} ms, library '
+            f'{"none" if lib is None else f"{lib:.4f} ms"}, bound '
+            f'{rec["bound_ms"]:.6f} ms; identical to plain')
+    log(f'[crowdpose] grouping general build {group_rec["ms"]:.4f} ms '
+        f'({split_text({"group_ms": group_rec["group_ms"]})}) against the '
+        f'J = 17 build on the same limbs {ms17:.4f} ms; crowd '
+        f'{tuple(crowd.shape)} capacity 128: {group_rec["ms_crowd_128"]:.4f}'
+        f' ms, plain {group_rec["plain_ms_crowd_128"]:.4f} ms | '
+        f'{card_line()}')
+    del model, infer, infers, preds, maps, bm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def crowdpose_set(root, scenes, ext='npy'):
+    """CrowdPose annotations of `scenes` under `root`, and for .npy seeded
+    noise images of 320x256 with each person's joints painted: (image
+    dir, annotation file)."""
+    ann, gt = crowdpose_annotations(scenes, ext=ext)
+    img_dir = os.path.join(root, 'images')
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.RandomState(len(scenes))
+    for im in ann['images']:
+        img = (rng.rand(256, 320, 3) * 80 + 80).astype(np.uint8)
+        for x, y, _ in gt[im['id']].reshape(-1, 3):
+            img[max(int(y) - 2, 0):int(y) + 3,
+                max(int(x) - 2, 0):int(x) + 3] = (60, 200, 60)
+        np.save(os.path.join(img_dir, im['file_name']), img)
+    path = os.path.join(root, 'annotations.json')
+    with open(path, 'w') as f:
+        json.dump(ann, f)
+    return img_dir, path
+
+
+def phase_crowdpose_oracle(dev, root):
+    """The CrowdPose GT oracle on 99 scenes (33 a crowdIndex band):
+    upsampled (peaks + grouping) and stride-resolution (NMS + top-k +
+    grouping) decode on the card, each path with its launches; AP and the
+    three band APs equal the same loop's on the CPU's plain versions."""
+    import torch
+    ann = crowdpose_set(os.path.join(root, 'cp_oracle'), crowdpose_scenes(
+        CROWDPOSE_ORACLE_IMAGES, seed=0))[1]
+    launches = {}
+    for name, up, need in (('upsampled', True, ('peaks', 'grouping')),
+                           ('lowres', False, ('nms_topk', 'grouping'))):
+        path = f'crowdpose_oracle_{name}'
+        t0 = time.perf_counter()
+        ours, stats, launches[path] = crowdpose_oracle(ann, dev, up)
+        dt = time.perf_counter() - t0
+        _, ref, _ = crowdpose_oracle(ann, torch.device('cpu'), up)
+        check_launches(path, launches[path], need)
+        text = lambda st: ', '.join(f'{k} {v:.4f}' for k, v in st.items())
+        log(f'[crowdpose oracle] {name} decode, {CROWDPOSE_ORACLE_IMAGES} '
+            f'scenes: card (kernels) {text(stats)} in {dt:.1f} s; CPU '
+            f'(plain) {text(ref)}; kernel launches {launches[path]}')
+        if stats != ref:
+            fail(f'crowdpose oracle {name}: card {stats} != CPU {ref}')
+        if min(stats.values()) <= 0.5:
+            fail(f'crowdpose oracle {name}: a band AP at or below 0.5 '
+                 f'{stats}')
+    return launches
+
+
+def phase_crowdpose_evaluate(dev, root):
+    """`cli.evaluate --dataset crowdpose` at full width on 16 seeded .npy
+    CrowdPose scenes (crowdIndex in each band), batch 8: `--fixed-height
+    --flip-test` (block top-k + grouping) and `--lowres-decode` (NMS +
+    top-k + grouping), each with its launches; the four band APs."""
+    import torch
+    from offsetguided_tpu_torch.cli import evaluate
+    img_dir, ann = crowdpose_set(os.path.join(root, 'cp_eval'),
+                                 crowdpose_scenes(16, seed=3))
+    base = ['--image-dir', img_dir, '--annotation-file', ann, '--dataset',
+            'crowdpose', '--batch-size', str(N_IMG)]
+    paths = {
+        'crowdpose_eval_fixed_height': (['--fixed-height', '--flip-test'],
+                                        ('topk', 'grouping'),
+                                        ('peaks', 'nms_topk')),
+        'crowdpose_eval_lowres': (['--lowres-decode'],
+                                  ('nms_topk', 'grouping'),
+                                  ('peaks', 'topk')),
+    }
+    launches = {}
+    for path, (extra, need, never) in paths.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        stats = evaluate.main(base + extra)
+        torch.cuda.synchronize()
+        launches[path] = read_launches()
+        if list(stats)[:4] != ['AP', 'AP_easy', 'AP_medium', 'AP_hard'] or \
+                not all(np.isfinite(v) for v in stats.values()):
+            fail(f'{path}: metrics {stats}')
+        check_launches(path, launches[path], need, never)
+        log(f'[crowdpose evaluate] {path}: 16 images, '
+            f'{stats["img_per_s"]:.2f} img/s (host clock), AP '
+            f'{stats["AP"]:.4f}, easy {stats["AP_easy"]:.4f}, medium '
+            f'{stats["AP_medium"]:.4f}, hard {stats["AP_hard"]:.4f} (random '
+            f'weights), peak memory '
+            f'{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, '
+            f'kernel launches {launches[path]}')
+    return launches
+
+
+def phase_crowdpose_serve_http(dev):
+    """8 concurrent POSTs against `cli.serve --dataset crowdpose`: every
+    answer 200 with poses of 14 keypoints, peaks + grouping launched."""
+    from offsetguided_tpu_torch.cli.bench_serve import make_test_jpegs
+    path = 'crowdpose_serve_http'
+    return {path: serve_burst(dev, path, ['--dataset', 'crowdpose'],
+                              ('peaks', 'grouping'), ('topk', 'nms_topk'),
+                              make_test_jpegs(8, seed=2), J14)}
+
+
+def phase_train_4stage(dev, root):
+    """`cli.train --basenet hourglass4stage` at the JAX CLI's defaults
+    (512^2, batch 16, 2 stacks, Adam) on the host route with 4 loader
+    processes and the validation pass, 8 steps on the 64-image hard set:
+    finite losses, no skipped step, a finite validation loss; img/s, the
+    step split by events and peak memory."""
+    import torch
+    from offsetguided_tpu_torch.cli import train
+    from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
+    img_dir, ann = make_hard_dataset(os.path.join(root, 'train'),
+                                     n_images=TRAIN_IMAGES, seed=0, ext='npy')
+    val_dir, val_ann = make_hard_dataset(os.path.join(root, 'val'),
+                                         n_images=VAL_IMAGES, seed=1,
+                                         ext='npy')
+    argv = ['--basenet', 'hourglass4stage', '--train-image-dir', img_dir,
+            '--train-annotations', ann, '--val-image-dir', val_dir,
+            '--val-annotations', val_ann, '--batch-size', str(TRAIN_BATCH),
+            '--square-length', str(TRAIN_SIZE), '--max-steps',
+            str(FOUR_STAGE_STEPS), '--loader-workers', str(LOADER_WORKERS),
+            '--print-freq', '1', '--checkpoint-dir',
+            os.path.join(root, 'checkpoints_4stage')]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    r = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if any(read_launches().values()):
+        fail(f'training launched a decode kernel: {read_launches()}')
+    for h in r['history']:
+        log(f'[train 4stage] step {h["step"]}: total {h["total"]:.4f} hmp '
+            f'{h["hmp"]:.4f} omp {h["omp"]:.6f} skipped {h["skipped"]:.0f}, '
+            f'host wait {h["host_wait_s"]:.4f} s, feed {h["feed_ms"]:.2f} '
+            f'ms, forward+backward+optimizer {h["step_ms"]:.2f} ms (CUDA '
+            f'events)')
+    for v in r['val']:
+        log(f'[train 4stage] validation after epoch {v["epoch"]}: loss '
+            f'{v["loss"]:.4f} over {v["batches"]} batch(es)')
+    if not r['val'] or not all(np.isfinite(v['loss']) for v in r['val']):
+        fail(f'train 4stage: validation losses {r["val"]}')
+    from offsetguided_tpu_torch.models import count_params, PoseNet
+    n = count_params(PoseNet(r['model_cfg']))
+    train_summary('train 4stage', r['history'], wall, peak, r['checkpoint'],
+                  steps=FOUR_STAGE_STEPS, falling=False,
+                  net=f'Hourglass-4stage ({n / 1e6:.2f} M parameters)')
+    torch.cuda.empty_cache()
+
+
+def phase_train_crowdpose(dev, root):
+    """`cli.train --dataset crowdpose` on full-width Hourglass-104 (14 / 17
+    heads), 4 steps at 512^2, batch 16, on 64 CrowdPose scenes: finite
+    losses, no skipped step."""
+    import torch
+    from offsetguided_tpu_torch.cli import train
+    img_dir, ann = crowdpose_set(os.path.join(root, 'cp_train'),
+                                 crowdpose_scenes(TRAIN_IMAGES, seed=5))
+    argv = ['--dataset', 'crowdpose', '--train-image-dir', img_dir,
+            '--train-annotations', ann, '--batch-size', str(TRAIN_BATCH),
+            '--square-length', str(TRAIN_SIZE), '--max-steps',
+            str(CROWDPOSE_TRAIN_STEPS), '--print-freq', '1',
+            '--checkpoint-dir', os.path.join(root, 'checkpoints_cp')]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    heads = r['model_cfg'].heads
+    if (heads.n_keypoints, heads.n_limbs) != (14, 17):
+        fail(f'train crowdpose: heads {heads}')
+    train_summary('train crowdpose', r['history'], wall,
+                  torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                  r['checkpoint'], steps=CROWDPOSE_TRAIN_STEPS, falling=False,
+                  net='Hourglass-104, CrowdPose heads 14 / 17,')
+    torch.cuda.empty_cache()
+
+
+def phase_4stage_reference(dev):
+    """The 4-stage net card vs CPU with TF32 off: the fp32 eval forward (BN
+    folded) at 128^2 within 1e-3 of the heatmaps' scale, and one fp64 SGD
+    step of the 1-stack net on the one-step batch (its fp32 images and
+    targets made on the CPU, so both devices start from the same bits)
+    within the CPU tests' tolerances; then a narrow Hourglass-104 with 3x3
+    tower heads, forward card vs CPU."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import HeadsConfig, ModelConfig
+    from offsetguided_tpu_torch.device import exact_fp32
+    from offsetguided_tpu_torch.models import random_posenet
+    from offsetguided_tpu_torch.ops.image import normalize_images
+
+    cases = {
+        'Hourglass-4stage, 1 stack, 128^2': (ModelConfig(
+            basenet='hourglass4stage', n_stacks=1, compute_dtype='float32'),
+            128),
+        'tower heads (tower_dim 256) on the tiny Hourglass-104, 128^2': (
+            ModelConfig(**dict(TINY_TRAIN, heads=HeadsConfig(tower=True))),
+            128),
+    }
+    with exact_fp32():
+        for what, (cfg, size) in cases.items():
+            net = random_posenet(cfg, 0, device='cpu', calib_size=size,
+                                 calib_batch=8).prepare_inference()
+            x = normalize_images(torch.from_numpy(np.random.RandomState(
+                4).randint(0, 256, (2, size, size, 3), dtype=np.uint8)))
+            with torch.inference_mode():
+                ref = net(x)
+                got = net.to(dev)(x.to(dev))
+            err = max(float((got[k][-1].cpu() - ref[k][-1]).abs().max())
+                      for k in ('hmp', 'omp', 'scmp'))
+            scale = float(ref['hmp'][-1].abs().max())
+            log(f'[4stage reference] {what}: fp32 eval forward card vs CPU '
+                f'max_abs_err {err:.3g} (max |hmp| {scale:.3g})')
+            if not err <= 1e-3 * scale:
+                fail(f'4stage reference: {what} card forward differs from '
+                     f'the CPU by {err} (scale {scale})')
+    def cpu_made_feed(where):
+        images, t, mask = tiny_feed('cpu')
+        return (normalize_images(images).to(where),
+                type(t)(*[x.to(where) for x in t]), mask.to(where))
+
+    e = train_one_step_errors(dev, cpu_made_feed, 'float64', dict(
+        basenet='hourglass4stage', n_stacks=1))
+    log(f'[4stage reference] float64 SGD step of the 1-stack 4-stage net on '
+        f'the one-step batch, normalized and encoded on the CPU for both '
+        f'devices (the net amplifies the last-bit differences of fp32 '
+        f'inputs made on each device), card vs CPU: losses max rel err '
+        f'{e["loss"]:.3g}, gradients max '
+        f'(|diff| - 1e-3 |g|) {e["grad"]:.3g} of the largest gradient '
+        f'{e["grad_max"]:.3g}, BN statistics max abs err {e["bn"]:.3g}')
+    if not one_step_ok(e):
+        fail('4stage reference: card and CPU steps differ past the CPU '
+             'tests\' tolerances')
+
+
 def main() -> int:
     try:
         import torch
@@ -2113,6 +2718,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail('no CUDA device: this smoke run needs the card')
     dev = torch.device('cuda', 0)
+    t_start = time.perf_counter()
     log(card_line())
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}')
@@ -2133,19 +2739,26 @@ def main() -> int:
     phase_large_k(dev)
     del serve, images
     torch.cuda.empty_cache()
+    launches.update(phase_crowdpose(dev, records))
     launches.update(phase_serve_http(dev))
+    launches.update(phase_crowdpose_serve_http(dev))
     launches.update(phase_bench())
     phase_bench_serve()
     with tempfile.TemporaryDirectory() as root:
         launches.update(phase_bench_e2e(root))
         launches.update(phase_tools_profile())
         launches.update(phase_evaluate(dev, root))
+        launches.update(phase_crowdpose_evaluate(dev, root))
         launches.update(phase_oracle(dev, root))
+        launches.update(phase_crowdpose_oracle(dev, root))
         torch.cuda.empty_cache()
         launches.update(phase_train(dev, root, skeleton, records))
         phase_train_host(dev, root)
+        phase_train_4stage(dev, root)
+        phase_train_crowdpose(dev, root)
         launches.update(phase_selfcheck(dev, root))
         phase_train_one_step(dev, root)
+        phase_4stage_reference(dev)
 
     kernels = []
     for key in KERNELS:
@@ -2158,6 +2771,8 @@ def main() -> int:
             r, launches=sum(by_path.values()), launches_by_path=by_path,
             bound_ms=max(t_bytes, t_ops),
             bound_by='bytes' if t_bytes >= t_ops else 'operations'))
+    log(f'[done] every phase passed in {time.perf_counter() - t_start:.1f} '
+        f's')
     log(card_line())
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

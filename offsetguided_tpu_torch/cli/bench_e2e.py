@@ -109,7 +109,8 @@ def main(argv=None) -> list:
                                      np.uint8)
                     shapes.add(preprocess_eval(
                         dummy, np.zeros((0, skeleton.n_keypoints, 4),
-                                        np.float32), cfg)[0].shape[:2])
+                                        np.float32), cfg,
+                        skeleton.n_keypoints)[0].shape[:2])
                 extra = {'n_padded_shapes': len(shapes),
                          'shapes': sorted(map(list, shapes)),
                          'width_bucket': args.width_bucket}

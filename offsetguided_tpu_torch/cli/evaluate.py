@@ -10,9 +10,10 @@ random seeded weights with BatchNorm calibrated at `--long-edge`
 `data/coco.py::read_image`: JPEG and PNG through the port's codec
 (`data/codec.py`), `.npy` uint8 RGB with numpy.
 
-Not taken here: `--checkpoint` (orbax; it comes with the training slice),
-`--peaks-map-batch` (a TPU tuning knob) and `--dataset crowdpose` (the
-CrowdPose config is not ported yet).
+`--dataset crowdpose` evaluates the CrowdPose 14-keypoint configuration:
+the heads follow the skeleton, and the metric is the CrowdPose protocol
+(AP and the easy / medium / hard crowdIndex bands). Not taken here:
+`--checkpoint` (orbax) and `--peaks-map-batch` (a TPU tuning knob).
 
     python -m offsetguided_tpu_torch.cli.evaluate --image-dir images \\
         --annotation-file ann.json --fixed-height --flip-test
@@ -74,7 +75,7 @@ def cli(argv=None):
                         'offset before pairing')
     p.add_argument('--io-workers', type=int, default=4,
                    help='host IO/preprocess threads feeding the device loop')
-    p.add_argument('--dataset', default='coco', choices=['coco'])
+    p.add_argument('--dataset', default='coco', choices=['coco', 'crowdpose'])
     p.add_argument('--all-images', action='store_true',
                    help='include images without annotations (test-dev)')
     p.add_argument('--results-json', default=None)
@@ -99,11 +100,16 @@ def cli(argv=None):
 
 
 def model_config(args):
-    from ..config.defaults import ModelConfig
+    """Hourglass-104 (or `--debug-tiny-model`'s narrow fp32 network) with
+    the heads of `--dataset`'s skeleton."""
+    from ..config.defaults import HeadsConfig, ModelConfig, SkeletonConfig
+    skeleton = SkeletonConfig.for_dataset(args.dataset)
+    heads = HeadsConfig(n_keypoints=skeleton.n_keypoints,
+                        n_limbs=skeleton.n_limbs)
     if args.debug_tiny_model:
         return ModelConfig(n_stacks=1, hg_order=2, dims=(8, 8, 12),
                            modules=(1, 1, 1), cnv_dim=8,
-                           compute_dtype='float32')
+                           compute_dtype='float32', heads=heads)
     kw = {}
     if args.hg_order is not None:
         kw['hg_order'] = args.hg_order
@@ -115,24 +121,26 @@ def model_config(args):
         kw['cnv_dim'] = args.cnv_dim
     if args.n_stacks is not None:
         kw['n_stacks'] = args.n_stacks
-    return ModelConfig(**kw)
+    return ModelConfig(heads=heads, **kw)
 
 
 def main(argv=None) -> Dict[str, float]:
     """Runs the evaluation; prints and returns the COCO keypoint metrics
-    and `img_per_s`, the images evaluated per second of `run_images`."""
+    (with `--dataset crowdpose`: AP and the three crowdIndex band APs) and
+    `img_per_s`, the images evaluated per second of `run_images`."""
     args = cli(argv)
     from ..config.defaults import DecoderConfig, EvalConfig, SkeletonConfig
     from ..data.coco import CocoJson
     from ..decoder import PostProcessor
     from ..device import resolve_device
-    from ..eval.cocoeval import evaluate_coco_keypoints
+    from ..eval.cocoeval import (evaluate_coco_keypoints,
+                                 evaluate_crowdpose_keypoints)
     from ..eval.harness import eval_image_ids, run_images
     from ..models import PoseNet, random_posenet
     from ..models.checkpoint import load_reference_checkpoint
 
     dev = resolve_device(args.device)
-    skeleton = SkeletonConfig()
+    skeleton = SkeletonConfig.for_dataset(args.dataset)
     model_cfg = model_config(args)
     if args.torch_checkpoint:
         model = PoseNet(model_cfg)
@@ -178,8 +186,10 @@ def main(argv=None) -> Dict[str, float]:
         with open(args.results_json, 'w') as f:
             json.dump(results, f)
     # the metric covers the evaluated image set only
-    stats = evaluate_coco_keypoints(coco, results, skeleton.sigmas,
-                                    image_ids=ids)
+    evaluate_keypoints = (evaluate_crowdpose_keypoints
+                          if args.dataset == 'crowdpose'
+                          else evaluate_coco_keypoints)
+    stats = evaluate_keypoints(coco, results, skeleton.sigmas, image_ids=ids)
     for k, v in stats.items():
         print(f'{k}: {v:.4f}')
     print(f'{len(ids)} images in {seconds:.3f} s: {len(ids) / seconds:.2f} '

@@ -71,7 +71,7 @@ def main(argv=None) -> dict:
         jf, jt = pp._jf, pp._jt
         skeleton = tuple(zip(jf.tolist(), jt.tolist()))
         bt = hmp.permute(0, 3, 1, 2).reshape(b * c, h, w)
-        meta = T.make_meta(args.size, args.size)
+        meta = T.make_meta(args.size, args.size, c)
         timer = StageTimer(dev)
         with torch.inference_mode():
             for _ in range(ITERS):
@@ -86,7 +86,7 @@ def main(argv=None) -> dict:
                     packed = dec.pack_limbs(limbs)
                 with timer.stage('grouping'):
                     poses, _, counts = grouping.group_skeletons(
-                        packed, skeleton, cfg, capacity=cfg.capacity)
+                        packed, skeleton, cfg, c, capacity=cfg.capacity)
                 with timer.stage('inverse'):
                     poses, counts = poses.cpu().numpy(), counts.cpu().numpy()
                     for i in range(b):

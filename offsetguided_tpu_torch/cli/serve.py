@@ -25,7 +25,8 @@ Endpoints:
 
     python -m offsetguided_tpu_torch.cli.serve [--port 8080] [--flip-test]
 
-`--dataset crowdpose` is not ported (the CrowdPose config is not).
+`--dataset crowdpose` serves the CrowdPose configuration: heads and poses
+of 14 keypoints.
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config.defaults import (DecoderConfig, EvalConfig, ModelConfig,
-                               SkeletonConfig)
+from ..config.defaults import (DecoderConfig, EvalConfig, HeadsConfig,
+                               ModelConfig, SkeletonConfig)
 from ..data import codec
 from ..data import transforms as T
 from ..decoder import PostProcessor
@@ -79,20 +80,20 @@ def cli(argv=None):
                    help='narrow random-weight backbone (CI / smoke use)')
     p.add_argument('--device', default=None,
                    help='torch device (default: the card)')
-    args = p.parse_args(argv)
-    if args.dataset == 'crowdpose':
-        p.error('--dataset crowdpose is not ported')
-    return args
+    return p.parse_args(argv)
 
 
-def model_config(args) -> ModelConfig:
+def model_config(args, skeleton: SkeletonConfig = SkeletonConfig()
+                 ) -> ModelConfig:
     """The JAX server's model: Hourglass-104 in bf16, or with
-    `--debug-tiny-model` its narrow fp32 network."""
+    `--debug-tiny-model` its narrow fp32 network; heads of `skeleton`."""
+    heads = HeadsConfig(n_keypoints=skeleton.n_keypoints,
+                        n_limbs=skeleton.n_limbs)
     if args.debug_tiny_model:
         return ModelConfig(n_stacks=1, hg_order=2, dims=(8, 8, 12),
                            modules=(1, 1, 1), cnv_dim=8,
-                           compute_dtype='float32')
-    return ModelConfig()
+                           compute_dtype='float32', heads=heads)
+    return ModelConfig(heads=heads)
 
 
 def load_weights(args, model_cfg: ModelConfig) -> Optional[dict]:
@@ -108,14 +109,17 @@ def load_weights(args, model_cfg: ModelConfig) -> Optional[dict]:
     return None
 
 
-def build_infer(args, model_cfg: ModelConfig = ModelConfig(),
+def build_infer(args, model_cfg: Optional[ModelConfig] = None,
                 state_dict: Optional[dict] = None, device=None,
                 seed: int = 0):
-    """-> (infer, skeleton, eval_cfg, model) from `cli()`'s arguments.
+    """-> (infer, skeleton, eval_cfg, model) from `cli()`'s arguments;
+    `model_cfg` defaults to `model_config` of `--dataset`'s skeleton.
     Without a `state_dict` the weights are `random_posenet(seed)`,
     calibrated at `args.long_edge`."""
     dev = resolve_device(device)
-    skeleton = SkeletonConfig()
+    skeleton = SkeletonConfig.for_dataset(args.dataset)
+    if model_cfg is None:
+        model_cfg = model_config(args, skeleton)
     if state_dict is not None:
         model = PoseNet(model_cfg)
         model.load_state_dict(state_dict, strict=True)
@@ -347,7 +351,7 @@ def make_server(args, infer, skeleton, eval_cfg):
 def main(argv=None):
     args = cli(argv)
     dev = resolve_device(args.device)
-    model_cfg = model_config(args)
+    model_cfg = model_config(args, SkeletonConfig.for_dataset(args.dataset))
     infer, skeleton, eval_cfg, _ = build_infer(
         args, model_cfg, load_weights(args, model_cfg), dev)
     s = eval_cfg.long_edge

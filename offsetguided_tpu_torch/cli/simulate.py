@@ -105,8 +105,9 @@ def main(argv=None) -> Dict[str, float]:
     for idx, img_id in enumerate(ids):
         info = coco.image_info(img_id)
         anns = T.normalize_annotations(coco.anns_for_image(img_id),
-                                       skeleton.sigmas)
-        meta = T.make_meta(info['width'], info['height'])
+                                       skeleton.sigmas, skeleton.n_keypoints)
+        meta = T.make_meta(info['width'], info['height'],
+                           skeleton.n_keypoints)
         dummy = np.zeros((info['height'], info['width'], 3), np.uint8)
         img2, anns, meta = T.rescale_long_absolute(dummy, anns, meta, size)
         _, anns, meta = T.center_pad(img2, anns, meta, size)

@@ -18,9 +18,13 @@ the explosion guard, Adam. With `--val-image-dir` / `--val-annotations`,
 each epoch end runs the validation losses over the unaugmented samples.
 Checkpoints at epoch ends (`--save-every`) and at `--max-steps`.
 
+`--dataset crowdpose` trains the CrowdPose 14-keypoint configuration (the
+skeleton sets the heads, the encoder's targets and the flip pairs);
+`--basenet hourglass4stage` the 4-stage backbone (fixed widths: `--n-stacks`
+and `--remat` apply, the Hourglass-104 width flags do not, and
+`--debug-tiny-model` narrows only Hourglass-104, as in the JAX package).
 Not ported, refused with a message: `--distributed`, `--freeze`,
-`--drop-layers`, `--basenet hourglass4stage`, `--dataset crowdpose` and
-`--warp-impl tiled` (the TPU's banded-matmul warp).
+`--drop-layers` and `--warp-impl tiled` (the TPU's banded-matmul warp).
 
     python -m offsetguided_tpu_torch.cli.train \\
         --train-image-dir images --train-annotations ann.json
@@ -164,9 +168,6 @@ def cli(argv=None):
          'ported'),
         (args.freeze is not None, '--freeze is not ported'),
         (args.drop_layers is not None, '--drop-layers is not ported'),
-        (args.basenet == 'hourglass4stage', '--basenet hourglass4stage is '
-         'not ported'),
-        (args.dataset == 'crowdpose', '--dataset crowdpose is not ported'),
         (args.warp_impl == 'tiled', '--warp-impl tiled (the TPU banded-'
          'matmul warp) is not ported; use --warp-impl patch'),
     ]
@@ -258,7 +259,7 @@ def main(argv=None) -> Dict:
     dev = resolve_device(args.device)
     cuda = dev.type == 'cuda'
 
-    skeleton = SkeletonConfig.coco(args.n_limbs)
+    skeleton = SkeletonConfig.for_dataset(args.dataset, args.n_limbs)
     heads = HeadsConfig(
         n_keypoints=skeleton.n_keypoints, n_limbs=skeleton.n_limbs,
         include_background=not args.no_background,

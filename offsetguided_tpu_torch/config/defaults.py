@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-from . import coco
+from . import coco, crowdpose
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +42,19 @@ class SkeletonConfig:
     @classmethod
     def coco(cls, n_limbs: int = 19) -> 'SkeletonConfig':
         return cls(skeleton=coco.SKELETONS_BY_SIZE[n_limbs])
+
+    @classmethod
+    def crowdpose(cls) -> 'SkeletonConfig':
+        return cls(keypoints=crowdpose.CROWDPOSE_KEYPOINTS,
+                   sigmas=crowdpose.CROWDPOSE_SIGMAS,
+                   skeleton=crowdpose.CROWDPOSE_PERSON_SKELETON,
+                   hflip=tuple(sorted(crowdpose.CROWDPOSE_HFLIP.items())))
+
+    @classmethod
+    def for_dataset(cls, dataset: str, n_limbs: int = 19) -> 'SkeletonConfig':
+        """The skeleton of a CLI's `--dataset`: 'crowdpose', or 'coco' with
+        `n_limbs` guiding-offset limbs."""
+        return cls.crowdpose() if dataset == 'crowdpose' else cls.coco(n_limbs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +117,10 @@ class HeadsConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Backbone + heads configuration."""
-    basenet: str = 'hourglass104'     # 'hourglass104' | 'hourglass52'
+    # 'hourglass104' | 'hourglass52' | 'hourglass4stage' (the 4-stage net
+    # has fixed widths: n_stacks and remat apply, the hourglass104 fields
+    # below do not)
+    basenet: str = 'hourglass104'
     n_stacks: int = 2
     cnv_dim: int = 256
     hg_order: int = 5

@@ -29,7 +29,8 @@
 //   values), with warp votes, shuffles and popcounts in place of serial
 //   scans. The keypoint indices sit in their own (M, J|1) array, an odd
 //   pitch so a warp's 32 rows fall in 32 banks; for the COCO skeleton's
-//   J = 17 a build with J known holds the merge find's row in registers.
+//   J = 17 a build with J known holds the merge find's row in registers
+//   (CrowdPose's J = 14 runs the general build).
 //   What is left is the merge find's M^2 J / 2 index compares a pass, the
 //   one phase whose work grows with the square of the capacity.
 // Masks are words of 32 rows or candidates, so capacity and top-k are
@@ -483,8 +484,9 @@ int og_group_skeletons(const float* packed, const int* skel, int N, int L,
            person_thre};
   const size_t bytes = smem_bytes(K, J, M, L);
   if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  // the COCO skeleton's 17 keypoints, the port's only skeleton, get a
-  // build with J known; any other J takes the general one
+  // the COCO skeleton's 17 keypoints get a build with J known; any other J
+  // (CrowdPose's 14, the small skeletons of the adversarial inputs) takes
+  // the general one
   const auto kernel = J == 17 ? group_kernel<17> : group_kernel<0>;
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -4,7 +4,8 @@ The JAX package's pure-numpy evaluator, copied: the COCOeval 'keypoints'
 protocol (per-image greedy matching of score-sorted detections
 to ground truths by Object Keypoint Similarity at 10 thresholds, 101-point
 interpolated precision, with the standard all/medium/large area ranges and
-maxDets=20). The CrowdPose bands come with the CrowdPose config.
+maxDets=20), and the CrowdPose protocol's crowdIndex bands
+(`evaluate_crowdpose_keypoints`).
 """
 from __future__ import annotations
 
@@ -246,3 +247,36 @@ def evaluate_coco_keypoints(gt_json_or_index, results: List[Dict],
         if keep is None or r['image_id'] in keep:
             dts_by_img[r['image_id']].append(r)
     return KeypointEval(sigmas).run(gts_by_img, dts_by_img)
+
+
+def evaluate_crowdpose_keypoints(gt_json_or_index, results: List[Dict],
+                                 sigmas, image_ids=None) -> Dict[str, float]:
+    """The CrowdPose protocol: overall AP, and AP on the easy / medium /
+    hard image bands split by each image's `crowdIndex` (the crowdpose-api
+    bands: easy below 0.1, medium 0.1 to 0.8, hard from 0.8). A band with
+    no image reads -1.0. image_ids: as in `evaluate_coco_keypoints`."""
+    from ..data.coco import CocoJson
+    coco = (gt_json_or_index if isinstance(gt_json_or_index, CocoJson)
+            else CocoJson(gt_json_or_index))
+    keep = None if image_ids is None else set(image_ids)
+    gts_by_img = {i: coco.anns_for_image(i)
+                  for i in coco.image_ids(with_persons=True)
+                  if keep is None or i in keep}
+    dts_by_img = defaultdict(list)
+    for r in results:
+        if keep is None or r['image_id'] in keep:
+            dts_by_img[r['image_id']].append(r)
+    ev = KeypointEval(sigmas)
+    out = {'AP': ev.run(gts_by_img, dts_by_img)['AP']}
+
+    def band(lo, hi):
+        ids = [i for i in gts_by_img
+               if lo <= coco.image_info(i).get('crowdIndex', 0.0) < hi]
+        g = {i: gts_by_img[i] for i in ids}
+        d = {i: dts_by_img.get(i, []) for i in ids}
+        return ev.run(g, d)['AP'] if ids else -1.0
+
+    out['AP_easy'] = band(-1.0, 0.1)
+    out['AP_medium'] = band(0.1, 0.8)
+    out['AP_hard'] = band(0.8, 10.0)
+    return out

@@ -10,10 +10,30 @@ optimizer state, the step, the epoch and the loss, one file an epoch
 for this package's PoseNet, whose modules keep the reference names.
 `state_dict_from_jax` maps the JAX `{'params', 'batch_stats'}` tree (nested
 dicts of numpy arrays, as `jax.tree_util.tree_map(np.asarray, variables)`
-gives) onto this package's PoseNet state dict. The key map is this package's
-own copy of the JAX package's `_torch_hourglass_names` / `_head_names`
-(module construction order of the flax tree against the reference module
-tree); convolution kernels go from HWIO to OIHW.
+gives) onto this package's PoseNet state dict, and `jax_from_state_dict`
+back, through one key map (`key_map`): convolution kernels go from HWIO to
+OIHW, Dense kernels from (in, out) to (out, in). For Hourglass-104 the map
+is this package's own copy of the JAX package's `_torch_hourglass_names` /
+`_head_names` (module construction order of the flax tree against the
+reference module tree). The 4-stage net and the 3x3 tower heads have no
+reference names and no torch key map in the JAX package; the port names
+them itself (`hourglass4stage_names`), in construction order of the flax
+tree:
+- `DilatedStem_0/ConvBN_0` -> `basenet.stem.conv`,
+  `DilatedStem_0/BottleneckResidual_{0,1}` -> `basenet.stem.res{1,2}`,
+  `DilatedStem_0/ConvBN_{1..6}` -> `basenet.stem.dilated.{0..5}`;
+- `HourglassBlock_{s}` -> `basenet.hgs.{s}`: its `BottleneckResidual_0`
+  -> `up1`, `_1` -> `low1`, `HourglassBlock_0` (or, at order 1,
+  `BottleneckResidual_2`) -> `low2`, the last `BottleneckResidual` ->
+  `low3`;
+- a bottleneck's `Conv_i` / `BatchNorm_i` -> `conv{i+1}` / `bn{i+1}` for i
+  < 3, `Conv_3` / `BatchNorm_3` (the projected skip) -> `skip.0` /
+  `skip.1`;
+- per stack s, the backbone's next two `ConvBN`s -> `basenet.features.{s}.0`
+  and `.1`, `SELayer_{s}/Dense_{0,1}` -> `basenet.features.{s}.2.fc{1,2}`,
+  and between stacks the next `ConvBN` -> `basenet.feedback.{s}`;
+- a tower head's `PoseHeads_0/<head>_{s}/Conv_{0,1}` -> its `Sequential`'s
+  `.0` and `.2`.
 """
 from __future__ import annotations
 
@@ -39,9 +59,20 @@ def _flatten(tree: Dict, prefix: str = '') -> Dict[str, np.ndarray]:
     return out
 
 
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    out: Dict = {}
+    for key, v in flat.items():
+        node = out
+        *path, leaf = key.split('/')
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
 def hourglass_names(cfg: ModelConfig) -> List[Tuple[str, str, str]]:
-    """(flax path in the backbone, torch prefix, kind) in construction
-    order; kind is 'convbn', 'convbn_seq' or 'residual'."""
+    """Hourglass104: (flax path in the backbone, torch prefix, kind) in
+    construction order; kind is 'convbn', 'convbn_seq' or 'residual'."""
     pairs = [('ConvBN_0', 'basenet.pre.0', 'convbn'),
              ('BasicResidual_0', 'basenet.pre.1', 'residual')]
 
@@ -85,6 +116,46 @@ def hourglass_names(cfg: ModelConfig) -> List[Tuple[str, str, str]]:
     return pairs
 
 
+def hourglass4stage_names(cfg: ModelConfig) -> List[Tuple[str, str, str]]:
+    """The 4-stage net: (flax path in the backbone, torch prefix, kind) in
+    construction order; kind is 'convbn', 'bottleneck' or 'se'."""
+    pairs = [('DilatedStem_0/ConvBN_0', 'basenet.stem.conv', 'convbn'),
+             ('DilatedStem_0/BottleneckResidual_0', 'basenet.stem.res1',
+              'bottleneck'),
+             ('DilatedStem_0/BottleneckResidual_1', 'basenet.stem.res2',
+              'bottleneck')]
+    pairs += [(f'DilatedStem_0/ConvBN_{i + 1}', f'basenet.stem.dilated.{i}',
+               'convbn') for i in range(6)]
+
+    def block(fp: str, tp: str, depth: int):
+        pairs.append((f'{fp}/BottleneckResidual_0', f'{tp}.up1',
+                      'bottleneck'))
+        pairs.append((f'{fp}/BottleneckResidual_1', f'{tp}.low1',
+                      'bottleneck'))
+        if depth > 1:
+            block(f'{fp}/HourglassBlock_0', f'{tp}.low2', depth - 1)
+        else:
+            pairs.append((f'{fp}/BottleneckResidual_2', f'{tp}.low2',
+                          'bottleneck'))
+        pairs.append((f'{fp}/BottleneckResidual_{3 if depth == 1 else 2}',
+                      f'{tp}.low3', 'bottleneck'))
+
+    conv_i = 0
+    for s in range(cfg.n_stacks):
+        block(f'HourglassBlock_{s}', f'basenet.hgs.{s}', 4)
+        pairs.append((f'ConvBN_{conv_i}', f'basenet.features.{s}.0',
+                      'convbn'))
+        pairs.append((f'ConvBN_{conv_i + 1}', f'basenet.features.{s}.1',
+                      'convbn'))
+        pairs.append((f'SELayer_{s}', f'basenet.features.{s}.2', 'se'))
+        conv_i += 2
+        if s < cfg.n_stacks - 1:
+            pairs.append((f'ConvBN_{conv_i}', f'basenet.feedback.{s}',
+                          'convbn'))
+            conv_i += 1
+    return pairs
+
+
 def head_names(cfg: ModelConfig) -> List[Tuple[str, str]]:
     h = cfg.heads
     pairs = []
@@ -102,52 +173,86 @@ def head_names(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return pairs
 
 
-def _oihw(w) -> np.ndarray:
-    """HWIO -> OIHW."""
-    return np.ascontiguousarray(np.transpose(np.asarray(w, np.float32),
-                                             (3, 2, 0, 1)))
+# one entry of the key map: (collection, flax leaf path, torch key, kind,
+# optional); kind 'conv' is an HWIO kernel (OIHW in torch), 'dense' an
+# (in, out) kernel ((out, in) in torch), 'vec' a vector; an optional entry
+# (a projection skip) is carried where the source has it
+_Entry = Tuple[str, str, str, str, bool]
+
+
+def key_map(cfg: ModelConfig) -> List[_Entry]:
+    """Every leaf of the JAX PoseNet's `{'params', 'batch_stats'}` tree
+    and its key in this package's PoseNet state dict."""
+    cfg = backbone_config(cfg)
+    out: List[_Entry] = []
+
+    def conv(fp, tp, optional=False):
+        out.append(('params', f'{fp}/kernel', f'{tp}.weight', 'conv',
+                    optional))
+
+    def bn(fp, tp, optional=False):
+        for col, f, t in (('params', 'scale', 'weight'),
+                          ('params', 'bias', 'bias'),
+                          ('batch_stats', 'mean', 'running_mean'),
+                          ('batch_stats', 'var', 'running_var')):
+            out.append((col, f'{fp}/{f}', f'{tp}.{t}', 'vec', optional))
+
+    def conv_bn(fp, i, conv_t, bn_t, optional=False):
+        conv(f'{fp}/Conv_{i}', conv_t, optional)
+        bn(f'{fp}/BatchNorm_{i}', bn_t, optional)
+
+    if cfg.basenet == 'hourglass4stage':
+        bb, names = 'Hourglass4Stage_0', hourglass4stage_names(cfg)
+    else:
+        bb, names = 'Hourglass104_0', hourglass_names(cfg)
+    for flax_path, tp, kind in names:
+        fp = f'{bb}/{flax_path}'
+        if kind in ('residual', 'bottleneck'):
+            conv_bn(fp, 0, f'{tp}.conv1', f'{tp}.bn1')
+            conv_bn(fp, 1, f'{tp}.conv2', f'{tp}.bn2')
+            if kind == 'bottleneck':
+                conv_bn(fp, 2, f'{tp}.conv3', f'{tp}.bn3')
+            i = 3 if kind == 'bottleneck' else 2
+            conv_bn(fp, i, f'{tp}.skip.0', f'{tp}.skip.1', optional=True)
+        elif kind == 'se':
+            for i in (0, 1):
+                out.append(('params', f'{fp}/Dense_{i}/kernel',
+                            f'{tp}.fc{i + 1}.weight', 'dense', False))
+                out.append(('params', f'{fp}/Dense_{i}/bias',
+                            f'{tp}.fc{i + 1}.bias', 'vec', False))
+        elif kind == 'convbn_seq':
+            conv_bn(fp, 0, f'{tp}.0', f'{tp}.1')
+        else:
+            conv_bn(fp, 0, f'{tp}.conv', f'{tp}.bn')
+
+    for flax_name, tp in head_names(cfg):
+        fp = f'PoseHeads_0/{flax_name}'
+        layers = ((f'{fp}/Conv_0', f'{tp}.0'), (f'{fp}/Conv_1', f'{tp}.2')) \
+            if cfg.heads.tower else ((fp, tp),)
+        for f, t in layers:
+            conv(f, t)
+            out.append(('params', f'{f}/bias', f'{t}.bias', 'vec', False))
+    return out
 
 
 def state_dict_from_jax(variables_np: Dict, cfg: ModelConfig
                         ) -> Dict[str, torch.Tensor]:
     """JAX PoseNet variables -> this package's PoseNet state dict."""
-    cfg = backbone_config(cfg)
-    params = _flatten(variables_np['params'])
-    stats = _flatten(variables_np['batch_stats'])
+    flat = {col: _flatten(variables_np[col])
+            for col in ('params', 'batch_stats')}
     sd: Dict[str, np.ndarray] = {}
-
-    def f32(v):
-        return np.asarray(v, np.float32)
-
-    def put_bn(fp, bn_f, tp):
-        sd[f'{tp}.weight'] = f32(params[f'{fp}/{bn_f}/scale'])
-        sd[f'{tp}.bias'] = f32(params[f'{fp}/{bn_f}/bias'])
-        sd[f'{tp}.running_mean'] = f32(stats[f'{fp}/{bn_f}/mean'])
-        sd[f'{tp}.running_var'] = f32(stats[f'{fp}/{bn_f}/var'])
-        sd[f'{tp}.num_batches_tracked'] = np.asarray(0, np.int64)
-
-    bb = 'Hourglass104_0'
-    for flax_path, tp, kind in hourglass_names(cfg):
-        fp = f'{bb}/{flax_path}'
-        if kind == 'residual':
-            sd[f'{tp}.conv1.weight'] = _oihw(params[f'{fp}/Conv_0/kernel'])
-            put_bn(fp, 'BatchNorm_0', f'{tp}.bn1')
-            sd[f'{tp}.conv2.weight'] = _oihw(params[f'{fp}/Conv_1/kernel'])
-            put_bn(fp, 'BatchNorm_1', f'{tp}.bn2')
-            if f'{fp}/Conv_2/kernel' in params:
-                sd[f'{tp}.skip.0.weight'] = _oihw(
-                    params[f'{fp}/Conv_2/kernel'])
-                put_bn(fp, 'BatchNorm_2', f'{tp}.skip.1')
-        else:
-            seq = kind == 'convbn_seq'
-            conv_t = f'{tp}.0' if seq else f'{tp}.conv'
-            sd[f'{conv_t}.weight'] = _oihw(params[f'{fp}/Conv_0/kernel'])
-            put_bn(fp, 'BatchNorm_0', f'{tp}.1' if seq else f'{tp}.bn')
-
-    hp = 'PoseHeads_0'
-    for flax_name, tp in head_names(cfg):
-        sd[f'{tp}.weight'] = _oihw(params[f'{hp}/{flax_name}/kernel'])
-        sd[f'{tp}.bias'] = f32(params[f'{hp}/{flax_name}/bias'])
+    for col, fk, tk, kind, optional in key_map(cfg):
+        if optional and fk not in flat[col]:
+            continue
+        v = np.asarray(flat[col][fk], np.float32)
+        if kind == 'conv':
+            v = v.transpose(3, 2, 0, 1)            # HWIO -> OIHW
+        elif kind == 'dense':
+            v = v.T
+        sd[tk] = np.ascontiguousarray(v)
+        if tk.endswith('.running_var'):
+            sd[tk[:-len('running_var')] + 'num_batches_tracked'] = \
+                np.asarray(0, np.int64)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
@@ -166,55 +271,17 @@ def jax_from_state_dict(sd: Dict[str, torch.Tensor], cfg: ModelConfig
     """This package's PoseNet state dict -> the JAX `{'params',
     'batch_stats'}` tree (nested dicts of float32 numpy arrays): the
     inverse of `state_dict_from_jax`."""
-    cfg = backbone_config(cfg)
-    params: Dict[str, np.ndarray] = {}
-    stats: Dict[str, np.ndarray] = {}
-
-    def t(key):
-        return sd[key].detach().cpu().float().numpy()
-
-    def hwio(key):
-        return np.ascontiguousarray(np.transpose(t(key), (2, 3, 1, 0)))
-
-    def get_bn(fp, bn_f, tp):
-        params[f'{fp}/{bn_f}/scale'] = t(f'{tp}.weight')
-        params[f'{fp}/{bn_f}/bias'] = t(f'{tp}.bias')
-        stats[f'{fp}/{bn_f}/mean'] = t(f'{tp}.running_mean')
-        stats[f'{fp}/{bn_f}/var'] = t(f'{tp}.running_var')
-
-    bb = 'Hourglass104_0'
-    for flax_path, tp, kind in hourglass_names(cfg):
-        fp = f'{bb}/{flax_path}'
-        if kind == 'residual':
-            params[f'{fp}/Conv_0/kernel'] = hwio(f'{tp}.conv1.weight')
-            get_bn(fp, 'BatchNorm_0', f'{tp}.bn1')
-            params[f'{fp}/Conv_1/kernel'] = hwio(f'{tp}.conv2.weight')
-            get_bn(fp, 'BatchNorm_1', f'{tp}.bn2')
-            if f'{tp}.skip.0.weight' in sd:
-                params[f'{fp}/Conv_2/kernel'] = hwio(f'{tp}.skip.0.weight')
-                get_bn(fp, 'BatchNorm_2', f'{tp}.skip.1')
-        else:
-            seq = kind == 'convbn_seq'
-            conv_t = f'{tp}.0' if seq else f'{tp}.conv'
-            params[f'{fp}/Conv_0/kernel'] = hwio(f'{conv_t}.weight')
-            get_bn(fp, 'BatchNorm_0', f'{tp}.1' if seq else f'{tp}.bn')
-
-    hp = 'PoseHeads_0'
-    for flax_name, tp in head_names(cfg):
-        params[f'{hp}/{flax_name}/kernel'] = hwio(f'{tp}.weight')
-        params[f'{hp}/{flax_name}/bias'] = t(f'{tp}.bias')
-    return {'params': _unflatten(params), 'batch_stats': _unflatten(stats)}
-
-
-def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
-    out: Dict = {}
-    for key, v in flat.items():
-        node = out
-        *path, leaf = key.split('/')
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = v
-    return out
+    flat: Dict[str, Dict[str, np.ndarray]] = {'params': {}, 'batch_stats': {}}
+    for col, fk, tk, kind, optional in key_map(cfg):
+        if optional and tk not in sd:
+            continue
+        v = sd[tk].detach().cpu().float().numpy()
+        if kind == 'conv':
+            v = v.transpose(2, 3, 1, 0)            # OIHW -> HWIO
+        elif kind == 'dense':
+            v = v.T
+        flat[col][fk] = np.ascontiguousarray(v)
+    return {col: _unflatten(v) for col, v in flat.items()}
 
 
 def _ckpt_path(ckpt_dir: str, epoch: int) -> str:

@@ -13,15 +13,13 @@ Submodules carry the reference names (`pre.0`, `kps.{s}.up1/low1/low2/low3`,
 """
 from __future__ import annotations
 
-import contextlib
 from typing import List, Sequence
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..config.defaults import ModelConfig
-from .layers import (BasicResidual, ConvBN, conv_bn_seq, frozen_statistics,
+from .layers import (BasicResidual, ConvBN, conv_bn_seq, remat_call,
                      upsample_nearest2x)
 
 
@@ -74,22 +72,13 @@ class Hourglass104(nn.Module):
         self.inters = nn.ModuleList([BasicResidual(256, 256)
                                      for _ in range(n - 1)])
         self.remat = cfg.remat
-
-    def _stack(self, kp, x):
-        """One hourglass stack; with `remat` in training, its activations
-        are recomputed in the backward instead of stored (the recompute
-        leaves the BatchNorm running statistics alone)."""
-        if not (self.remat and self.training and torch.is_grad_enabled()):
-            return kp(x)
-        return checkpoint(kp, x, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(),
-                                              frozen_statistics(kp)))
+        self.feat_dim = cfg.cnv_dim
 
     def forward(self, x) -> List[torch.Tensor]:
         inter = self.pre(x)
         outs = []
         for s, (kp, cnv) in enumerate(zip(self.kps, self.cnvs)):
-            y = cnv(self._stack(kp, inter))
+            y = cnv(remat_call(kp, inter, self.remat))
             outs.append(y)
             if s < len(self.kps) - 1:
                 inter = torch.relu(self.inters_[s](inter) + self.cnvs_[s](y))

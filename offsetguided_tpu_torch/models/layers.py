@@ -2,7 +2,10 @@
 
 Attribute names follow the reference module tree (`conv`/`bn`,
 `conv1`/`bn1`/`conv2`/`bn2`/`skip`), so a reference state dict loads with
-`strict=True`. Convolutions use torch padding `(k-1)//2`.
+`strict=True`; the 4-stage backbone's blocks (`BottleneckResidual`,
+`SELayer`) have no reference names and take the same scheme
+(`conv3`/`bn3`, `fc1`/`fc2`). Convolutions use torch padding
+`dilation*(k-1)//2`.
 
 `BatchNorm2d` trains with the JAX package's BatchNorm semantics (fp32
 statistics, fast variance, biased running variance); in eval mode it is the
@@ -18,6 +21,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class _TrainNorm(torch.autograd.Function):
@@ -99,20 +103,40 @@ def frozen_statistics(module: nn.Module):
             del m.update_statistics
 
 
+def activate(x: torch.Tensor, leaky: float) -> torch.Tensor:
+    """ReLU, or LeakyReLU of slope `leaky` where it is nonzero."""
+    return F.leaky_relu(x, leaky) if leaky else torch.relu(x)
+
+
+def remat_call(module: nn.Module, x, remat: bool):
+    """`module(x)`; with `remat` in training, its activations are
+    recomputed in the backward instead of stored (the recompute leaves the
+    BatchNorm running statistics alone)."""
+    if not (remat and module.training and torch.is_grad_enabled()):
+        return module(x)
+    return checkpoint(module, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          frozen_statistics(module)))
+
+
 class ConvBN(nn.Module):
-    """k x k conv + BN + optional ReLU."""
+    """k x k conv + BN + optional ReLU (LeakyReLU of slope `leaky` where it
+    is nonzero). Padding is `dilation * (k - 1) // 2` a side, the JAX
+    package's 'TORCH' padding."""
 
     def __init__(self, k: int, in_ch: int, out_ch: int, stride: int = 1,
-                 relu: bool = True):
+                 relu: bool = True, leaky: float = 0.0, dilation: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, k, stride=stride,
-                              padding=(k - 1) // 2, bias=False)
+                              padding=dilation * (k - 1) // 2,
+                              dilation=dilation, bias=False)
         self.bn = BatchNorm2d(out_ch)
         self.relu = relu
+        self.leaky = leaky
 
     def forward(self, x):
         y = self.bn(self.conv(x))
-        return torch.relu(y) if self.relu else y
+        return activate(y, self.leaky) if self.relu else y
 
 
 def conv_bn_seq(in_ch: int, out_ch: int) -> nn.Sequential:
@@ -144,6 +168,56 @@ class BasicResidual(nn.Module):
         return torch.relu(y + self.skip(x))
 
 
+class BottleneckResidual(nn.Module):
+    """1x1 conv to half the width, 3x3 at half, 1x1 to full, each with BN;
+    LeakyReLU 0.01 after the first two and after the add; the skip is a
+    projected 1x1 conv + BN (`skip.0` / `skip.1`) when the width changes.
+    Used by the 4-stage backbone."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        half = out_ch // 2
+        self.conv1 = nn.Conv2d(in_ch, half, 1, bias=False)
+        self.bn1 = BatchNorm2d(half)
+        self.conv2 = nn.Conv2d(half, half, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(half)
+        self.conv3 = nn.Conv2d(half, out_ch, 1, bias=False)
+        self.bn3 = BatchNorm2d(out_ch)
+        self.skip = (conv_bn_seq(in_ch, out_ch) if in_ch != out_ch
+                     else nn.Sequential())
+
+    def forward(self, x):
+        y = F.leaky_relu(self.bn1(self.conv1(x)), 0.01)
+        y = F.leaky_relu(self.bn2(self.conv2(y)), 0.01)
+        y = self.bn3(self.conv3(y))
+        return F.leaky_relu(y + self.skip(x), 0.01)
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation: the spatial mean in fp32 or wider whatever
+    the input's type (the JAX package takes it in fp32), Linear c -> c/16,
+    ReLU, Linear c/16 -> c, sigmoid, channel scale. The Linear layers run
+    in the type of their weights (bf16 in the eval-mode backbone, as the
+    JAX package's Dense layers run in the compute type; under autocast in
+    training)."""
+
+    def __init__(self, ch: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = nn.Linear(ch, ch // reduction)
+        self.fc2 = nn.Linear(ch // reduction, ch)
+
+    def forward(self, x):
+        s = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
+            dim=(2, 3)).to(self.fc1.weight.dtype)
+        s = torch.sigmoid(self.fc2(torch.relu(self.fc1(s))))
+        return x * s[:, :, None, None].to(x.dtype)
+
+
+def max_pool2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pooling, stride 2, VALID."""
+    return F.max_pool2d(x, 2, 2)
+
+
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
     """Repeat each pixel 2x2 (`nn.Upsample(scale_factor=2)`)."""
     return F.interpolate(x, scale_factor=2, mode='nearest')
@@ -166,7 +240,8 @@ def _folded(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> nn.Conv2d:
     return out
 
 
-_PAIRS = (('conv', 'bn'), ('conv1', 'bn1'), ('conv2', 'bn2'), ('0', '1'))
+_PAIRS = (('conv', 'bn'), ('conv1', 'bn1'), ('conv2', 'bn2'),
+          ('conv3', 'bn3'), ('0', '1'))
 
 
 def fold_batchnorm(module: nn.Module) -> nn.Module:

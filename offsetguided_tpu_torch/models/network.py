@@ -20,30 +20,37 @@ from ..config.defaults import ModelConfig
 from ..device import resolve_device
 from .heads import PoseHeads
 from .hourglass104 import Hourglass104
+from .hourglass4stage import Hourglass4Stage
 from ..ops.image import normalize_images
 from .layers import BatchNorm2d, fold_batchnorm
 
 
 def backbone_config(cfg: ModelConfig) -> ModelConfig:
-    """The Hourglass104 config a `basenet` name stands for."""
-    if cfg.basenet == 'hourglass104':
+    """The backbone config a `basenet` name stands for (`hourglass52` is
+    the single-stack Hourglass104)."""
+    if cfg.basenet in ('hourglass104', 'hourglass4stage'):
         return cfg
-    if cfg.basenet == 'hourglass52':          # single-stack hourglass
+    if cfg.basenet == 'hourglass52':
         return dataclasses.replace(cfg, n_stacks=1)
-    raise ValueError(f'basenet {cfg.basenet!r} is not ported')
+    raise ValueError(f'unknown basenet: {cfg.basenet}')
 
 
 def basenet_factory(cfg: ModelConfig) -> nn.Module:
-    return Hourglass104(backbone_config(cfg))
+    """The backbone; its `feat_dim` is the width of its per-stack features
+    (`cnv_dim` for Hourglass104, 256 for the 4-stage net)."""
+    bcfg = backbone_config(cfg)
+    if bcfg.basenet == 'hourglass4stage':
+        return Hourglass4Stage(bcfg)
+    return Hourglass104(bcfg)
 
 
 class PoseNet(nn.Module):
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg = cfg
-        bcfg = backbone_config(cfg)
         self.basenet = basenet_factory(cfg)
-        self.headnets = PoseHeads(cfg.heads, bcfg.cnv_dim, bcfg.n_stacks)
+        self.headnets = PoseHeads(cfg.heads, self.basenet.feat_dim,
+                                  backbone_config(cfg).n_stacks)
         for m in self.modules():
             if isinstance(m, BatchNorm2d):     # torch convention: 1 - JAX's
                 m.momentum = 1.0 - cfg.bn_momentum
@@ -87,18 +94,17 @@ class PoseNet(nn.Module):
 @torch.no_grad()
 def init_he_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights that keep a deep forward in range: He-scaled
-    conv kernels, small biases, BatchNorm statistics with variance >= 0.5.
-    Drawn on the CPU from one `torch.Generator`, so a seed gives the same
-    weights on every device."""
+    conv and Linear (squeeze-and-excitation) weights, small biases,
+    BatchNorm statistics with variance >= 0.5. Drawn on the CPU from one
+    `torch.Generator`, so a seed gives the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
 
     def draw(t, scale, shift=0.0):
         t.copy_(torch.randn(t.shape, generator=g) * scale + shift)
 
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            draw(m.weight, (2.0 / fan_in) ** 0.5)
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            draw(m.weight, (2.0 / m.weight[0].numel()) ** 0.5)
             if m.bias is not None:
                 draw(m.bias, 0.1)
         elif isinstance(m, nn.BatchNorm2d):
@@ -114,15 +120,26 @@ def init_he_(model: nn.Module, seed: int) -> nn.Module:
 def init_reference_(model: nn.Module, generator: torch.Generator
                     ) -> nn.Module:
     """The JAX trainer's fresh initialization: every conv kernel (heads
-    included) drawn from normal(0, 0.001), zero biases, BatchNorm scale 1
-    and offset 0, running mean 0 and variance 1. Drawn on the CPU from
-    `generator`, so a seed gives the same weights on every device."""
+    included) drawn from normal(0, 0.001), the squeeze-and-excitation
+    Linear weights from flax Dense's default (lecun_normal: a normal of
+    std sqrt(1 / fan_in) / 0.8796, truncated at two of its stds), zero
+    biases, BatchNorm scale 1 and offset 0, running mean 0 and variance 1.
+    Drawn on the CPU from `generator`, so a seed gives the same weights on
+    every device."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
                            * 0.001)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            w = torch.randn(m.weight.shape, generator=generator)
+            out = w.abs() > 2
+            while out.any():
+                w[out] = torch.randn(int(out.sum()), generator=generator)
+                out = w.abs() > 2
+            m.weight.copy_(w * ((1.0 / m.in_features) ** 0.5 / 0.87962566))
+            m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     return model

@@ -6,6 +6,7 @@ is present. Needs no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -580,3 +581,88 @@ def test_host_route_train_step_matches_cpu(cuda, tmp_path):
     assert host_route_targets_error(cuda, feed) <= 1e-6
     e = train_one_step_errors(cuda, feed, 'float64')
     assert one_step_ok(e), e
+
+
+# --- the CrowdPose skeleton: J = 14, L = 17, the kernel's general build -- #
+
+def crowdpose_limbs(kind):
+    """Packed (N, 17, K, 13) limbs on the CrowdPose skeleton and their
+    decoder config: 'oracle' the GT oracle's limbs of the six scenes of
+    tests/test_crowdpose_e2e.py (encoded and decoded on the card), 'model'
+    a narrow random CrowdPose model's on noise at 256^2, 'crowd_128' a
+    dense crowd at capacity 128, top-k 96."""
+    from chip_smoke import (CROWDPOSE_DECODE, CROWDPOSE_SCENES, J14,
+                            crowdpose_persons)
+    from offsetguided_tpu_torch.config.defaults import (
+        EncoderConfig, HeadsConfig, ModelConfig, SkeletonConfig)
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.models import random_posenet
+    from offsetguided_tpu_torch.ops.encoder import encode_targets
+    from offsetguided_tpu_torch.ops.image import normalize_images
+    sk = SkeletonConfig.crowdpose()
+    if kind == 'crowd_128':
+        return (torch.from_numpy(crowd_limbs(4, 96, seed=14, L=17,
+                                             skeleton=sk.skeleton)).cuda(),
+                DecoderConfig(topk=96, dist_max=40.0, use_scale=False,
+                              person_thre=0.05, max_poses=96, capacity=128))
+    if kind == 'oracle':
+        anns = np.zeros((len(CROWDPOSE_SCENES), 8, J14, 4), np.float32)
+        for i, (_, placements) in enumerate(CROWDPOSE_SCENES):
+            anns[i, :len(placements), :, :3] = crowdpose_persons(
+                [(x / 2, y / 2, b / 2) for x, y, b in placements], seed=i)
+            anns[i, :len(placements), :, 3] = 3.0
+        t = encode_targets(torch.from_numpy(anns).cuda(), sk.sigmas,
+                           sk.skeleton, 40, 40, EncoderConfig(max_persons=8))
+        cfg = DecoderConfig(**CROWDPOSE_DECODE)
+        preds = {'hmp': [t.hmp], 'jomp': [t.jomp], 'omp': [t.omp],
+                 'scmp': [None]}
+    else:
+        cfg = DecoderConfig(topk=32, thre_hmp=0.04, dist_max=40.0)
+        model = random_posenet(ModelConfig(
+            n_stacks=1, hg_order=2, dims=(8, 8, 12), modules=(1, 1, 1),
+            cnv_dim=8, compute_dtype='float32',
+            heads=HeadsConfig(n_keypoints=14, n_limbs=17)), 0, 'cuda',
+            calib_size=256).prepare_inference()
+        x = torch.from_numpy(np.random.RandomState(3).randint(
+            0, 256, (4, 256, 256, 3), dtype=np.uint8)).cuda()
+        with torch.inference_mode():
+            preds = model(normalize_images(x))
+    packed = PostProcessor(skeleton=sk, cfg=cfg).decode_packed_limbs(preds)
+    return packed.contiguous(), cfg
+
+
+@pytest.mark.parametrize('kind', ['oracle', 'model', 'crowd_128'])
+def test_grouping_kernel_crowdpose(cuda, kind):
+    """The general build (`group_kernel<0>`) at J = 14, L = 17 against the
+    plain grouping: the oracle's and a model's limbs, and a crowd at
+    capacity 128."""
+    from offsetguided_tpu_torch.config.defaults import SkeletonConfig
+    x, cfg = crowdpose_limbs(kind)
+    assert x.shape[1] == 17
+    c = kernel_vs_plain(x.cpu().numpy(), SkeletonConfig.crowdpose().skeleton,
+                        14, dataclasses.asdict(cfg))
+    assert int(c.sum()) > 0
+
+
+@pytest.mark.parametrize('kernel', ['peaks', 'nms_topk', 'topk'])
+def test_selection_kernels_at_crowdpose_maps(cuda, kernel):
+    """The three selection kernels on M = 8 * 14 maps, the CrowdPose
+    batch's: (112, 160, 160) square maps for peaks and NMS + top-k, the
+    fixed-height block maxima (112, 80 * 128) for block top-k."""
+    rng = np.random.RandomState(14)
+    if kernel == 'topk':
+        x = torch.from_numpy((np.round(rng.rand(112, 80 * 128) * 64) / 64)
+                             .astype(np.float32)).to(cuda)
+        v, i = topk.topk(x, 32)
+        pv, pi = topk.topk_plain(x, 32)
+        assert torch.equal(i, pi) and torch.equal(bits(v), bits(pv))
+        return
+    x = torch.from_numpy(rng.rand(112, 160, 160).astype(np.float32) ** 4
+                         ).to(cuda)
+    if kernel == 'peaks':
+        v, ys, xs = peaks.peaks_topk(x, 32)
+        pv, pys, pxs = peaks.peaks_topk_plain(x, 32)
+        assert torch.equal(ys, pys) and torch.equal(xs, pxs)
+        assert torch.equal(bits(v), bits(pv))
+    else:
+        assert_nms_topk_matches_plain(x, 32)

@@ -528,8 +528,6 @@ def test_cli_trains_with_loader_workers_and_resumes(tiny_set, tmp_path):
 @pytest.mark.parametrize('flags', [
     ['--device-aug', '--distributed'], ['--device-aug', '--freeze', 'hmp'],
     ['--device-aug', '--drop-layers', 'hmp'],
-    ['--device-aug', '--basenet', 'hourglass4stage'],
-    ['--device-aug', '--dataset', 'crowdpose'],
     ['--device-aug', '--warp-impl', 'tiled']])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
