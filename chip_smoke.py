@@ -40,6 +40,17 @@ batch 8, bf16):
   hourglass4stage` at the JAX CLI's defaults, 8 steps, host route, 4
   loader processes, validation) and `[4stage reference]` (fp32 eval
   forward and an fp64 step card vs CPU, and the 3x3 tower heads);
+- the last five tools: `[demo]` (`cli.demo` on four hard-set JPEGs with
+  flip test and every picture; poses equal to `cli.serve.build_infer`'s),
+  `[export]` (`cli.export --with-decode` at 512^2: parameters, GMACs, the
+  `torch.export` program loaded and run in a fresh process, bit-equal to
+  eager, the peaks and grouping custom ops in its graph and launched),
+  `[bench_train]` (resident data, device augmentation on the patch and
+  the tiled warp), `[bench_warp]` (`--full`, tiled within the JAX
+  package's tolerance of patch) and `[bench_stem]` (every formulation
+  equal to `plain`); and `[dispatch]`, the serving path through the
+  kernels' custom ops against their CUDA implementations called
+  directly, in turns;
 - the port's JPEG / PNG codec built on the card's host (`[codec]`: pinned
   body and pixel digests, decode ms), and the serving front end and its
   tools: `cli.serve`'s HTTP server on port 0 (48 concurrent JPEG POSTs,
@@ -58,6 +69,7 @@ before the last line. Needs a CUDA device; never touches JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -350,6 +362,39 @@ def pose_sets_match(p, rp, counts, atol: float) -> bool:
             if hit is None:
                 return False
             unused.remove(hit)
+    return True
+
+
+def decodes_match(p, s, c, rp, rs, rc) -> bool:
+    """Two decodes of a batch, (poses, scores, counts), agree up to fp32
+    ties: counts equal; per image, the kept scores equal within 1e-5 as
+    sorted lists, and the kept poses equal within 1e-4 as sets (matched as
+    `pose_sets_match` matches them), leaving out the poses whose score ties
+    (within 1e-5) with the last kept one where the count passes max_poses:
+    which of several tied poses the cut keeps depends on the last bit of
+    each person's masked-mean score, which the grouping kernel and its
+    plain version sum in other orders."""
+    if not np.array_equal(c.cpu().numpy(), rc.cpu().numpy()):
+        return False
+    p, s, rp, rs = (t.cpu().numpy() for t in (p, s, rp, rs))
+    for i, ci in enumerate(c.tolist()):
+        k = min(ci, p.shape[1])
+        a, b = s[i, :k], rs[i, :k]
+        if not np.allclose(np.sort(a), np.sort(b), rtol=0, atol=1e-5):
+            return False
+        if not np.array_equal(p[i, k:], rp[i, k:]):
+            return False
+        keep = (a > a.min() + 1e-5) if ci > k else np.ones(k, bool)
+        rkeep = (b > b.min() + 1e-5) if ci > k else np.ones(k, bool)
+        unused = [j for j in range(k) if rkeep[j]]
+        for row in p[i, :k][keep]:
+            hit = next((j for j in unused if np.allclose(
+                row, rp[i, j], rtol=0, atol=1e-4)), None)
+            if hit is None:
+                return False
+            unused.remove(hit)
+        if unused:
+            return False
     return True
 
 
@@ -1535,7 +1580,8 @@ def phase_train(dev, root, skeleton, records):
 def phase_train_profile(dev, img_dir, ann):
     """Where a training step's time goes, at the [train] configuration:
     the host loader's batch (host clock), the feed split by CUDA events
-    (H2D from pinned memory, the warp + photometric + annotation pass, GT
+    (H2D from pinned memory, the warp + photometric + annotation pass on
+    the tiled warp, the trainer's default, and on the patch warp, GT
     encoding, mask downscaling; mean of 3 batches after one warm-up), and
     one train step under torch.profiler by kernel category, with the
     device's idle share, for Hourglass-104 and for the 4-stage net (2
@@ -1544,7 +1590,8 @@ def phase_train_profile(dev, img_dir, ann):
     from offsetguided_tpu_torch.config.defaults import (
         AugmentationConfig, EncoderConfig, ModelConfig, SkeletonConfig)
     from offsetguided_tpu_torch.data import pipeline
-    from offsetguided_tpu_torch.ops.augment import augment_batch_dict
+    from offsetguided_tpu_torch.ops.augment import (augment_batch_dict,
+                                                    warp_slope_bound)
     from offsetguided_tpu_torch.ops.encoder import (downscale_mask,
                                                     encode_targets)
 
@@ -1560,22 +1607,27 @@ def phase_train_profile(dev, img_dir, ann):
                for i in range(4)]
     loader_ms = (time.perf_counter() - t0) / 4 * 1e3
     out_hw = TRAIN_SIZE // enc.stride
-    parts = {'h2d': 0.0, 'augment': 0.0, 'encode': 0.0, 'downscale': 0.0}
+    parts = {'h2d': 0.0, 'augment (tiled warp)': 0.0,
+             'augment (patch warp)': 0.0, 'encode': 0.0, 'downscale': 0.0}
     for i, batch in enumerate(batches):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         b = {k: torch.from_numpy(batch[k]).pin_memory().to(
             dev, non_blocking=True) for k in ds.sample_spec()}
         ev[1].record()
         with torch.no_grad():
             imgs, mask01, anns = augment_batch_dict(
-                b, TRAIN_SIZE, ds.left_index, ds.right_index)
+                b, TRAIN_SIZE, ds.left_index, ds.right_index,
+                slope_bound=warp_slope_bound(ds.aug))
             ev[2].record()
+            augment_batch_dict(b, TRAIN_SIZE, ds.left_index, ds.right_index,
+                               warp_impl='patch')
+            ev[3].record()
             targets = encode_targets(anns, sk.sigmas, sk.skeleton, out_hw,
                                      out_hw, enc)
-            ev[3].record()
-            mask = downscale_mask(mask01, enc)
             ev[4].record()
+            mask = downscale_mask(mask01, enc)
+            ev[5].record()
         torch.cuda.synchronize()
         if i:
             for k, (a, c) in zip(parts, zip(ev, ev[1:])):
@@ -1672,9 +1724,11 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
                    never=('topk', 'nms_topk'))
     with plain_kernels():
         rp, rs, rc = infer(images)
-    if not (torch.equal(counts, rc) and float((poses - rp).abs().max()) <= 1e-4
-            and float((scores - rs).abs().max()) <= 1e-5):
-        fail('train hand-off: kernel and plain decodes differ')
+    if not decodes_match(poses, scores, counts, rp, rs, rc):
+        fail(f'train hand-off: kernel and plain decodes differ: counts '
+             f'{counts.tolist()} vs {rc.tolist()}, poses by '
+             f'{float((poses - rp).abs().max())}, scores by '
+             f'{float((scores - rs).abs().max())}')
 
     pp = infer.postprocessor
     with torch.inference_mode():
@@ -1689,13 +1743,16 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
             and torch.equal(bits(v), bits(pv))):
         fail('train hand-off: peaks kernel differs from plain')
     err = compare_grouping('[train hand-off] grouping', packed, skeleton,
-                           pp.cfg)
+                           dataclasses.replace(pp.cfg,
+                                               max_poses=pp.cfg.capacity),
+                           order_free=True)
     r = records['grouping']
     r['max_abs_err'] = max(r['max_abs_err'], err)
     log(f'[train hand-off] trained checkpoint served at {LONG_EDGE}^2 batch '
         f'{N_IMG}: counts {counts.tolist()}, kernel launches {launches}; '
-        f'decode identical to the plain kernels end to end, peaks bit-equal '
-        f'on the trained maps')
+        f'decode equal to the plain kernels\' end to end (in place: '
+        f'{float((poses - rp).abs().max()) <= 1e-4}), peaks bit-equal on '
+        f'the trained maps')
     return launches
 
 
@@ -2710,6 +2767,324 @@ def phase_4stage_reference(dev):
              'tests\' tolerances')
 
 
+# --------------------------------------------------------------------------- #
+# the custom ops' dispatch, the demo, export and the training benchmarks
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def direct_kernels():
+    """The peaks and grouping wrappers calling their ops' CUDA
+    implementations directly, past the custom-op dispatcher: the decode's
+    path before the kernels became custom ops (one ctypes call each)."""
+    from offsetguided_tpu_torch.ops.cuda import grouping, peaks
+
+    def peaks_direct(maps, k, method='bicubic'):
+        return peaks._peaks_topk_cuda(maps, k, method)
+
+    def group_direct(packed, skeleton, cfg, n_keypoints=17, capacity=64):
+        return grouping._group_cuda(
+            packed, [j for pair in skeleton for j in pair], n_keypoints,
+            capacity, cfg.max_poses, cfg.settle_passes, cfg.sort_dim,
+            bool(cfg.use_scale), float(cfg.dist_max), float(cfg.person_thre))
+
+    peaks_direct.launches = group_direct.launches = 0
+    saved = (peaks.peaks_topk, grouping.group_skeletons)
+    peaks.peaks_topk, grouping.group_skeletons = peaks_direct, group_direct
+    try:
+        yield
+    finally:
+        peaks.peaks_topk, grouping.group_skeletons = saved
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of `fn` (enqueue only: the card runs
+    behind), after a synchronized warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def phase_dispatch(serve, images):
+    """What the custom ops cost the serving path: [full]'s flip-off img/s
+    (host clock over 5 batches after one) through the ops and through
+    their CUDA implementations called directly, in turns (ops, direct,
+    direct, ops), and the host's microseconds a wrapper call on the main
+    path's inputs, op against direct."""
+    import torch
+    from offsetguided_tpu_torch.ops.cuda import grouping, peaks
+    from offsetguided_tpu_torch.ops.image import normalize_images
+
+    infer, _, _, model = serve
+    pp = infer.postprocessor
+
+    def rate():
+        infer(images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            infer(images)
+        torch.cuda.synchronize()
+        return N_IMG * 5 / (time.perf_counter() - t0)
+
+    turns = []
+    for mode in ('ops', 'direct', 'direct', 'ops'):
+        if mode == 'ops':
+            turns.append((mode, rate()))
+        else:
+            with direct_kernels():
+                turns.append((mode, rate()))
+    with torch.inference_mode():
+        preds = model(normalize_images(images))
+        hmp = pp.select_stage(preds)['hmp']
+        n, h, w, c = hmp.shape
+        maps = hmp.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous()
+        packed = pp.decode_packed_limbs(preds).contiguous()
+    skeleton = tuple(zip(pp._jf.tolist(), pp._jt.tolist()))
+    flat = [j for pair in skeleton for j in pair]
+    cfg = pp.cfg
+    calls = {
+        'peaks op': lambda: peaks.peaks_topk(maps, TOPK),
+        'peaks direct': lambda: peaks._peaks_topk_cuda(maps, TOPK, 'bicubic'),
+        'grouping op': lambda: grouping.group_skeletons(packed, skeleton,
+                                                        cfg),
+        'grouping direct': lambda: grouping._group_cuda(
+            packed, flat, J, cfg.capacity, cfg.max_poses, cfg.settle_passes,
+            cfg.sort_dim, bool(cfg.use_scale), float(cfg.dist_max),
+            float(cfg.person_thre)),
+    }
+    us = {k: host_us(fn) for k, fn in calls.items()}
+    mean = lambda m: np.mean([r for k, r in turns if k == m])
+    log('[dispatch] [full] flip off in turns: '
+        + ', '.join(f'{k} {r:.2f}' for k, r in turns)
+        + f' img/s (ops mean {mean("ops"):.2f}, direct mean '
+        f'{mean("direct"):.2f}); host us a call: '
+        + ', '.join(f'{k} {v:.1f}' for k, v in us.items())
+        + f' | {card_line()}')
+
+
+DEMO_IMAGES = 4
+DEMO_FLAGS = ['--flip-test', '--show-heatmaps', '--show-limb-offsets', '0',
+              '--show-all-limbs']
+
+
+def phase_demo(dev, root):
+    """`cli.demo.main` at full width (random seeded weights calibrated at
+    640^2, as `cli.serve` makes them) on four painted hard-set JPEGs with
+    flip test, heatmaps, limb offsets, all limbs and the annotation file.
+    Each image's poses must equal what `cli.serve.build_infer` gives for
+    the same image and weights (its decoder at the demo's settings), every
+    PNG must decode through the codec at its size, the losses must be
+    finite, and the path must launch the peaks, grouping and (all limbs)
+    block top-k kernels. Returns {'demo': launches}."""
+    import torch
+    from offsetguided_tpu_torch.cli import demo
+    from offsetguided_tpu_torch.cli.serve import build_infer, cli
+    from offsetguided_tpu_torch.data import codec
+    from offsetguided_tpu_torch.data import transforms as T
+    from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
+    from offsetguided_tpu_torch.eval.harness import preprocess_eval
+
+    img_dir, ann = make_hard_dataset(os.path.join(root, 'demo'),
+                                     n_images=DEMO_IMAGES, seed=3, ext='jpg')
+    paths = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+    out_dir = os.path.join(root, 'demo_out')
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = demo.main(paths + DEMO_FLAGS + ['--annotation-file', ann,
+                                              '--output-dir', out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches('demo', launches, ('peaks', 'grouping', 'topk'),
+                   never=('nms_topk',))
+
+    infer, _, eval_cfg, _ = build_infer(cli(
+        ['--flip-test', '--topk', '48', '--thre-hmp', '0.06', '--dist-max',
+         '20', '--person-thre', '0.06']), device=dev, seed=0)
+    n_poses = []
+    for path, r in zip(paths, results):
+        raw = codec.imread(path)
+        img, _, meta = preprocess_eval(raw, np.zeros((0, J, 4), np.float32),
+                                       eval_cfg)
+        poses, _, counts = infer(torch.from_numpy(img[None]).to(dev))
+        want = T.annotations_inverse(
+            poses[0, :int(counts[0])].cpu().numpy(), meta)
+        if not np.array_equal(want, r['poses']):
+            fail(f'demo: {os.path.basename(path)} poses differ from '
+                 f'build_infer\'s')
+        if r['losses'] is None or not all(np.isfinite(v) for v in
+                                          r['losses'].values()):
+            fail(f'demo: {os.path.basename(path)} losses {r["losses"]}')
+        for f in r['files']:
+            png = codec.imread(f)
+            size = raw.shape if f.endswith('.poses.png') else img.shape
+            if png is None or png.shape != size:
+                fail(f'demo: {f} does not decode at {size}')
+        n_poses.append(len(r['poses']))
+    log(f'[demo] Hourglass-104 on {len(paths)} hard-set JPEGs with '
+        f'{" ".join(DEMO_FLAGS)}: {wall:.1f} s ({wall / len(paths):.2f} s an '
+        f'image, model build included), poses {n_poses} equal to '
+        f'build_infer\'s, {sum(len(r["files"]) for r in results)} PNGs '
+        f'decoded, losses of image 1 '
+        f'{ {k: round(v, 4) for k, v in results[0]["losses"].items()} }, '
+        f'kernel launches {launches}')
+    return {'demo': launches}
+
+
+HG104_PARAMS_M = 187.7        # Hourglass-104 with its heads, millions
+EXPORT_LOAD = """
+import json, sys, time
+import numpy as np, torch
+import offsetguided_tpu_torch.ops.cuda
+from offsetguided_tpu_torch.ops.cuda import grouping, nms_topk, peaks, topk
+t0 = time.perf_counter()
+program = torch.export.load(sys.argv[1]).module()
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(sys.argv[2])).to(sys.argv[4])
+with torch.inference_mode():
+    t0 = time.perf_counter()
+    out = program(x)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+np.savez(sys.argv[3], *[t.cpu().numpy() for t in out])
+print(json.dumps({'load_s': load_s, 'first_run_s': first_s, 'launches': {
+    'peaks': peaks.peaks_topk.launches,
+    'grouping': grouping.group_skeletons.launches,
+    'topk': topk.topk.launches, 'nms_topk': nms_topk.nms_topk.launches}}))
+"""
+
+
+def phase_export(dev, root):
+    """`cli.export.main` at full width, batch 1, 512^2, with the decode:
+    the parameters per top module, the GMACs beside the reference's thop
+    234.5, the seconds of `torch.export`; the program holds the peaks and
+    grouping custom ops; saved, then loaded and run in a fresh process on
+    the card, its poses, scores and counts bit-equal to the eager forward
+    + decode on the same input, with the kernels' launches counted there.
+    Returns {'export_pt2': the fresh process's launches}."""
+    import torch
+    from offsetguided_tpu_torch.cli import export
+    from offsetguided_tpu_torch.config.defaults import DecoderConfig
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.ops.image import normalize_images
+
+    path = os.path.join(root, 'hourglass104.pt2')
+    torch.cuda.empty_cache()
+    r = export.main(['--input-size', '512', '--batch-size', '1',
+                     '--with-decode', '--output', path])
+    params = r['params']
+    if abs(params['TOTAL'] / 1e6 - HG104_PARAMS_M) > 0.1:
+        fail(f'export: {params["TOTAL"]} parameters, not {HG104_PARAMS_M} M')
+    targets = {str(n.target) for n in r['program'].graph.nodes
+               if n.op == 'call_function'}
+    need = {'offsetguided.peaks_topk.default',
+            'offsetguided.group_skeletons.default'}
+    if not need <= targets:
+        fail(f'export: the program lacks {need - targets}')
+    x = normalize_images(torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (1, 512, 512, 3), dtype=np.uint8)).to(dev))
+    with torch.inference_mode():
+        eager = export.Forward(r['model'], PostProcessor(cfg=DecoderConfig()))(
+            x)
+    x_path, out_path = (os.path.join(root, 'export_x.npy'),
+                        os.path.join(root, 'export_out.npz'))
+    np.save(x_path, x.cpu().numpy())
+    del r
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, '-c', EXPORT_LOAD, path, x_path, out_path,
+         str(dev)],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        fail(f'export: loading the program in a fresh process failed:\n'
+             f'{proc.stderr[-3000:]}')
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = np.load(out_path)
+    for i, name in enumerate(('poses', 'scores', 'counts')):
+        a, b = got[f'arr_{i}'], eager[i].cpu().numpy()
+        if not (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a.view(np.uint8), b.view(np.uint8))):
+            fail(f'export: the loaded program\'s {name} differ from eager')
+    check_launches('export_pt2', info['launches'], ('peaks', 'grouping'),
+                   never=('topk', 'nms_topk'))
+    log(f'[export] counts {eager[2].tolist()}: the program run in a fresh '
+        f'process (load {info["load_s"]:.1f} s, first run '
+        f'{info["first_run_s"]:.2f} s) bit-equal to eager, kernel launches '
+        f'there {info["launches"]}; .pt2 {os.path.getsize(path) / 1e6:.1f} MB')
+    return {'export_pt2': info['launches']}
+
+
+def phase_bench_train():
+    """`cli.bench_train` at the JAX tool's defaults (Hourglass-104, 512^2,
+    batch 16, Adam): device-resident data, then the device augmentation on
+    the patch and on the tiled warp. No decode kernel runs."""
+    import torch
+    from offsetguided_tpu_torch.cli import bench_train
+
+    for extra in ([], ['--device-aug', '--warp-impl', 'patch'],
+                  ['--device-aug', '--warp-impl', 'tiled']):
+        torch.cuda.empty_cache()
+        reset_launches()
+        out = bench_train.main(extra)
+        if any(read_launches().values()):
+            fail(f'bench_train launched a decode kernel: {read_launches()}')
+        if not out['value'] > 0:
+            fail(f'bench_train: {out}')
+        c = out['config']
+        log(f'[bench_train] device_aug {c["device_aug"]} warp '
+            f'{c["warp_impl"]}: {out["value"]} img/s, {c["step_ms"]} ms a '
+            f'step (host clock: a 9-step run less a 3-step run) | '
+            f'{card_line()}')
+    torch.cuda.empty_cache()
+
+
+def phase_bench_warp():
+    """`cli.bench_warp --full` at the JAX tool's defaults (16 x 640^2 ->
+    512^2, 4 channels, slope bound 3, tiles 8 x 64): both warps and the
+    whole `augment_batch`, tiled within the JAX package's tolerance of
+    patch; then the tiled warp at 8 x 16 tiles."""
+    import torch
+    from offsetguided_tpu_torch.cli import bench_warp
+
+    torch.cuda.empty_cache()
+    out = bench_warp.main(['--full'])
+    if not out['within_tolerance']:
+        fail(f'bench_warp: tiled differs from patch past rtol 1e-3 / atol '
+             f'0.05 (max {out["max_abs_diff"]})')
+    small = bench_warp.main(['--impls', 'tiled', '--lane-chunk', '16'])
+    log(f'[bench_warp] ms a batch (CUDA events): warp '
+        f'{ {k: round(v, 3) for k, v in out["warp_ms"].items()} }, '
+        f'augment_batch '
+        f'{ {k: round(v, 3) for k, v in out["augment_batch_ms"].items()} }; '
+        f'max |patch - tiled| {out["max_abs_diff"]:.4f}; tiled at 8 x 16 '
+        f'tiles {small["warp_ms"]["tiled"]:.3f} ms | {card_line()}')
+    torch.cuda.empty_cache()
+
+
+def phase_bench_stem():
+    """`cli.bench_stem` at the JAX tool's shape (batch 8, 640^2, 128
+    features, bf16): every formulation within its tolerance of `plain`, in
+    NCHW and channels_last."""
+    from offsetguided_tpu_torch.cli import bench_stem
+
+    out = bench_stem.main([])
+    bad = [k for k, ok in out['ok'].items() if not ok]
+    if bad:
+        fail(f'bench_stem: {bad} differ from plain: {out["max_abs_err"]}')
+    log(f'[bench_stem] ms (CUDA events): '
+        f'{ {k: round(v, 4) for k, v in out["ms"].items()} } | '
+        f'{card_line()}')
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2731,6 +3106,7 @@ def main() -> int:
     phase_peaks(dev, skeleton, records)
     phase_grouping(dev, skeleton, records)
     launches, serve, images = phase_full_width(dev)
+    phase_dispatch(serve, images)
     phase_main_path_kernels(skeleton, serve, images, records)
     phase_reference(dev, serve)
     launches['batcher'] = phase_batcher(dev, serve)
@@ -2747,6 +3123,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         launches.update(phase_bench_e2e(root))
         launches.update(phase_tools_profile())
+        launches.update(phase_demo(dev, root))
+        launches.update(phase_export(dev, root))
         launches.update(phase_evaluate(dev, root))
         launches.update(phase_crowdpose_evaluate(dev, root))
         launches.update(phase_oracle(dev, root))
@@ -2759,6 +3137,9 @@ def main() -> int:
         launches.update(phase_selfcheck(dev, root))
         phase_train_one_step(dev, root)
         phase_4stage_reference(dev)
+        phase_bench_train()
+        phase_bench_warp()
+        phase_bench_stem()
 
     kernels = []
     for key in KERNELS:

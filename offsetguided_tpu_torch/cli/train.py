@@ -23,8 +23,10 @@ skeleton sets the heads, the encoder's targets and the flip pairs);
 `--basenet hourglass4stage` the 4-stage backbone (fixed widths: `--n-stacks`
 and `--remat` apply, the Hourglass-104 width flags do not, and
 `--debug-tiny-model` narrows only Hourglass-104, as in the JAX package).
-Not ported, refused with a message: `--distributed`, `--freeze`,
-`--drop-layers` and `--warp-impl tiled` (the TPU's banded-matmul warp).
+The device-aug warp is `--warp-impl tiled` (windowed banded matmuls, the
+default, as in the JAX package) or `patch` (the 4x4-footprint gather).
+Not ported, refused with a message: `--distributed`, `--freeze` and
+`--drop-layers`.
 
     python -m offsetguided_tpu_torch.cli.train \\
         --train-image-dir images --train-annotations ann.json
@@ -51,10 +53,11 @@ def cli(argv=None):
     g.add_argument('--square-length', type=int, default=512)
     g.add_argument('--max-persons', type=int, default=32)
     g.add_argument('--n-images', type=int, default=None)
-    g.add_argument('--warp-impl', default='patch', choices=['patch', 'tiled'],
-                   help='device-aug bicubic warp: patch = 4x4 footprint '
-                        'gather (tiled, the TPU banded-matmul form, is not '
-                        'ported)')
+    g.add_argument('--warp-impl', default='tiled',
+                   choices=['patch', 'tiled'],
+                   help='device-aug bicubic warp: tiled = windowed banded '
+                        'matmuls (default; ops/augment.py::'
+                        'affine_sample_tiled); patch = 4x4 footprint gather')
     g.add_argument('--device-aug', action='store_true',
                    help='warp + photometric augmentation on the device '
                         '(ops/augment.py); the host keeps image read, mask '
@@ -168,8 +171,6 @@ def cli(argv=None):
          'ported'),
         (args.freeze is not None, '--freeze is not ported'),
         (args.drop_layers is not None, '--drop-layers is not ported'),
-        (args.warp_impl == 'tiled', '--warp-impl tiled (the TPU banded-'
-         'matmul warp) is not ported; use --warp-impl patch'),
     ]
     for bad, msg in refused:
         if bad:
@@ -198,10 +199,12 @@ def model_config(args, heads):
 
 
 def device_batch(batch, dataset, dev, enc_cfg, skeleton,
-                 square_length: int):
+                 square_length: int, warp_impl: str = 'tiled',
+                 slope_bound: float = 3.0):
     """Host batch -> (uint8 images, targets, bool mask) on `dev`, inputs
     pinned and copied without blocking on a CUDA device. A device-aug
-    batch (it carries `aug_mat`) is warped there first; a host-route batch
+    batch (it carries `aug_mat`) is warped there first (`warp_impl`,
+    `slope_bound`: `augment_batch_dict`'s); a host-route batch
     arrives warped, its mask uint8 in [0, 255]. GT encoding and the mask
     downscale run on the device on both routes."""
     import torch
@@ -219,7 +222,8 @@ def device_batch(batch, dataset, dev, enc_cfg, skeleton,
         if 'aug_mat' in dev_b:
             imgs, mask, anns = augment_batch_dict(
                 dev_b, square_length, dataset.left_index,
-                dataset.right_index)
+                dataset.right_index, warp_impl=warp_impl,
+                slope_bound=slope_bound)
         else:
             imgs, mask, anns = (dev_b['image'], dev_b['mask_miss'],
                                 dev_b['anns'])
@@ -326,9 +330,12 @@ def main(argv=None) -> Dict:
                            train_cfg.loss_explosion_guard, args.max_grad_norm)
     train_step.step = start_step
 
+    from ..ops.augment import warp_slope_bound
+    slope_bound = warp_slope_bound(aug_cfg)
+
     def feed(batch):
         return device_batch(batch, dataset, dev, enc_cfg, skeleton,
-                            args.square_length)
+                            args.square_length, args.warp_impl, slope_bound)
 
     val_dataset = None
     if args.val_image_dir and args.val_annotations:

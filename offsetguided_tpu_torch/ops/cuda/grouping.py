@@ -2,14 +2,18 @@
 plain PyTorch version (`ops/grouping.py`).
 
 `group_skeletons(packed (N, L, K, 13), skeleton, cfg)` returns
-`(poses (N, max_poses, J, 6), scores (N, max_poses), counts (N,) int32)`. A
-CUDA tensor launches the kernel, one CTA per image, or raises when the shapes
-need more shared memory than a block can have; a CPU tensor takes the plain
-version.
+`(poses (N, max_poses, J, 6), scores (N, max_poses), counts (N,) int32)`.
+It calls the custom op `offsetguided::group_skeletons` with the skeleton
+as a flat list of ints and the decoder settings the grouping reads as
+scalars: its CUDA implementation launches the kernel, one CTA per image,
+or raises when the shapes need more shared memory than a block can have;
+its CPU implementation is the plain version; its fake implementation gives
+the output shapes.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -59,20 +63,42 @@ def check_shapes(K: int, J: int, M: int, L: int, max_poses: int,
 def group_skeletons(packed_limbs: torch.Tensor, skeleton: Sequence,
                     cfg: DecoderConfig, n_keypoints: int = 17,
                     capacity: int = 64):
-    if not packed_limbs.is_cuda:
-        return group_skeletons_plain(packed_limbs, skeleton, cfg,
-                                     n_keypoints, capacity)
+    return _group_op(packed_limbs, [int(j) for pair in skeleton for j in pair],
+                     n_keypoints, capacity, cfg.max_poses, cfg.settle_passes,
+                     cfg.sort_dim, bool(cfg.use_scale), float(cfg.dist_max),
+                     float(cfg.person_thre))
+
+
+def _pairs(skeleton: List[int]) -> tuple:
+    return tuple(zip(skeleton[0::2], skeleton[1::2]))
+
+
+def _settings(max_poses, settle_passes, sort_dim, use_scale, dist_max,
+              person_thre) -> DecoderConfig:
+    """The decoder settings the grouping reads, as a `DecoderConfig`."""
+    return dataclasses.replace(
+        DecoderConfig(), max_poses=max_poses, settle_passes=settle_passes,
+        sort_dim=sort_dim, use_scale=use_scale, dist_max=dist_max,
+        person_thre=person_thre)
+
+
+def _group_cuda(packed_limbs: torch.Tensor, skeleton: List[int],
+                n_keypoints: int, capacity: int, max_poses: int,
+                settle_passes: int, sort_dim: int, use_scale: bool,
+                dist_max: float, person_thre: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: launches the kernel."""
     n, L, K, C = packed_limbs.shape
-    if C != 13 or L != len(skeleton):
+    if C != 13 or 2 * L != len(skeleton):
         raise ValueError(f'packed limbs {tuple(packed_limbs.shape)} do not '
-                         f'match a {len(skeleton)}-limb skeleton')
-    check_shapes(K, n_keypoints, capacity, L, cfg.max_poses, cfg.sort_dim)
+                         f'match a {len(skeleton) // 2}-limb skeleton')
+    check_shapes(K, n_keypoints, capacity, L, max_poses, sort_dim)
     dev = packed_limbs.device
     x = packed_limbs.float().contiguous()
-    skel = _skeleton_on(dev, skeleton)
-    poses = torch.empty((n, cfg.max_poses, n_keypoints, 6),
+    skel = _skeleton_on(dev, _pairs(skeleton))
+    poses = torch.empty((n, max_poses, n_keypoints, 6),
                         dtype=torch.float32, device=dev)
-    scores = torch.empty((n, cfg.max_poses), dtype=torch.float32, device=dev)
+    scores = torch.empty((n, max_poses), dtype=torch.float32, device=dev)
     counts = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return poses, scores, counts
@@ -80,13 +106,39 @@ def group_skeletons(packed_limbs: torch.Tensor, skeleton: Sequence,
     with torch.cuda.device(dev):
         code = lib.og_group_skeletons(
             x.data_ptr(), skel.data_ptr(), n, L, K, n_keypoints, capacity,
-            cfg.max_poses, cfg.settle_passes, cfg.sort_dim,
-            int(cfg.use_scale), float(cfg.dist_max), float(cfg.person_thre),
-            poses.data_ptr(), scores.data_ptr(), counts.data_ptr(),
+            max_poses, settle_passes, sort_dim, int(use_scale),
+            float(dist_max), float(person_thre), poses.data_ptr(),
+            scores.data_ptr(), counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, 'grouping kernel launch')
     group_skeletons.launches += 1
     return poses, scores, counts
+
+
+_group_op = torch.library.custom_op(
+    'offsetguided::group_skeletons', _group_cuda, mutates_args=(),
+    device_types='cuda')
+
+
+@_group_op.register_kernel('cpu')
+def _(packed_limbs, skeleton, n_keypoints, capacity, max_poses,
+      settle_passes, sort_dim, use_scale, dist_max, person_thre):
+    # dense outputs: the strides the fake implementation gives
+    out = group_skeletons_plain(
+        packed_limbs, _pairs(skeleton),
+        _settings(max_poses, settle_passes, sort_dim, use_scale, dist_max,
+                  person_thre), n_keypoints, capacity)
+    return tuple(t.contiguous() for t in out)
+
+
+@_group_op.register_fake
+def _(packed_limbs, skeleton, n_keypoints, capacity, max_poses,
+      settle_passes, sort_dim, use_scale, dist_max, person_thre):
+    n = packed_limbs.shape[0]
+    return (packed_limbs.new_empty((n, max_poses, n_keypoints, 6),
+                                   dtype=torch.float32),
+            packed_limbs.new_empty((n, max_poses), dtype=torch.float32),
+            packed_limbs.new_empty((n,), dtype=torch.int32))
 
 
 group_skeletons.launches = 0

@@ -3,19 +3,21 @@ and its plain PyTorch version.
 
 `nms_topk(maps (M, h, w), k)` returns `(vals (M, k) float32, inds (M, k)
 int64)`: the top-k of `hmp_nms(maps)` over the flat row-major h*w index,
-values descending, ties to the lowest index. A CUDA tensor launches the
-kernel (on a contiguous copy where the maps are not contiguous), or raises
-where the shapes need more shared memory than a block can have (k is
-bounded by that, not by a fixed limit); a CPU tensor takes
-`nms_topk_plain`.
+values descending, ties to the lowest index. It calls the custom op
+`offsetguided::nms_topk`: its CUDA implementation launches the kernel (on
+a contiguous copy where the maps are not contiguous), or raises where the
+shapes need more shared memory than a block can have (k is bounded by
+that, not by a fixed limit); its CPU implementation is `nms_topk_plain`;
+its fake implementation gives the output shapes.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from ..decoder import hmp_nms, stable_topk
 from . import _build
-
 from ._build import MAX_SMEM, SELECT_SHARED_BYTES, win_keys
 
 # as in csrc/nms_topk.cu
@@ -46,8 +48,12 @@ def nms_topk_plain(maps: torch.Tensor, k: int):
 
 
 def nms_topk(maps: torch.Tensor, k: int):
-    if not maps.is_cuda:
-        return nms_topk_plain(maps, k)
+    return _nms_topk_op(maps, k)
+
+
+def _nms_topk_cuda(maps: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: launches the kernel."""
     if maps.dim() != 3:
         raise ValueError(f'maps must be (M, h, w), got {tuple(maps.shape)}')
     m, h, w = maps.shape
@@ -73,6 +79,24 @@ def nms_topk(maps: torch.Tensor, k: int):
     _build.check(code, 'nms_topk kernel launch')
     nms_topk.launches += 1
     return vals, inds
+
+
+_nms_topk_op = torch.library.custom_op(
+    'offsetguided::nms_topk', _nms_topk_cuda, mutates_args=(),
+    device_types='cuda')
+
+
+@_nms_topk_op.register_kernel('cpu')
+def _(maps, k):
+    # dense outputs: the strides the fake implementation gives
+    vals, inds = nms_topk_plain(maps, k)
+    return vals.contiguous(), inds.contiguous()
+
+
+@_nms_topk_op.register_fake
+def _(maps, k):
+    return (maps.new_empty((maps.shape[0], k), dtype=torch.float32),
+            maps.new_empty((maps.shape[0], k), dtype=torch.int64))
 
 
 nms_topk.launches = 0

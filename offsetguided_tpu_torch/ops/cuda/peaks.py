@@ -4,12 +4,16 @@
 `peaks_topk(maps (B, h, w), k)` returns `(vals, ys, xs)`, each (B, k), the
 top-k 2x2 blocks of the NMS'd x`FACTOR` upsampled maps in full-resolution
 pixel coordinates: value descending, ties to the lowest flat block index,
-first-wins position inside the block. A CUDA tensor launches the kernel,
-or raises where k needs more shared memory than a block can have (k is
-bounded by that, not by a fixed limit); a CPU tensor takes
-`peaks_topk_plain`.
+first-wins position inside the block. It calls the custom op
+`offsetguided::peaks_topk`, whose CUDA implementation launches the
+kernel, or raises where k needs more shared memory than a block can have
+(k is bounded by that, not by a fixed limit), and whose CPU implementation
+is `peaks_topk_plain`; its fake implementation gives the output shapes, so
+`torch.export` can trace a decode that calls it.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -53,8 +57,12 @@ def _tap_arrays(method: str):
 
 
 def peaks_topk(maps: torch.Tensor, k: int, method: str = 'bicubic'):
-    if not maps.is_cuda:
-        return peaks_topk_plain(maps, k, method)
+    return _peaks_topk_op(maps, k, method)
+
+
+def _peaks_topk_cuda(maps: torch.Tensor, k: int, method: str
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: launches the kernel."""
     if maps.dim() != 3:
         raise ValueError(f'maps must be (B, h, w), got {tuple(maps.shape)}')
     b, h, w = maps.shape
@@ -82,6 +90,26 @@ def peaks_topk(maps: torch.Tensor, k: int, method: str = 'bicubic'):
     _build.check(code, 'peaks kernel launch')
     peaks_topk.launches += 1
     return vals, ys.long(), xs.long()
+
+
+_peaks_topk_op = torch.library.custom_op(
+    'offsetguided::peaks_topk', _peaks_topk_cuda, mutates_args=(),
+    device_types='cuda')
+
+
+@_peaks_topk_op.register_kernel('cpu')
+def _(maps, k, method):
+    # dense outputs: the strides the fake implementation gives
+    vals, ys, xs = peaks_topk_plain(maps, k, method)
+    return vals.contiguous(), ys.contiguous(), xs.contiguous()
+
+
+@_peaks_topk_op.register_fake
+def _(maps, k, method):
+    b = maps.shape[0]
+    return (maps.new_empty((b, k), dtype=torch.float32),
+            maps.new_empty((b, k), dtype=torch.int64),
+            maps.new_empty((b, k), dtype=torch.int64))
 
 
 peaks_topk.launches = 0

@@ -3,11 +3,15 @@ plain PyTorch version.
 
 `topk(x (M, n), k)` returns `(vals (M, k) float32, inds (M, k) int64)`:
 values descending, ties to the lowest index, distinct indices (the order of
-`lax.top_k`, except that -0.0 ties with +0.0). A CUDA tensor launches the
-kernel, or raises where k needs more shared memory than a block can have (k
-is bounded by that, not by a fixed limit); a CPU tensor takes `topk_plain`.
+`lax.top_k`, except that -0.0 ties with +0.0). It calls the custom op
+`offsetguided::topk`: its CUDA implementation launches the kernel, or
+raises where k needs more shared memory than a block can have (k is
+bounded by that, not by a fixed limit); its CPU implementation is
+`topk_plain`; its fake implementation gives the output shapes.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -35,8 +39,11 @@ def topk_plain(x: torch.Tensor, k: int):
 
 
 def topk(x: torch.Tensor, k: int):
-    if not x.is_cuda:
-        return topk_plain(x, k)
+    return _topk_op(x, k)
+
+
+def _topk_cuda(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: launches the kernel."""
     if x.dim() != 2:
         raise ValueError(f'x must be (M, n), got {tuple(x.shape)}')
     m, n = x.shape
@@ -61,6 +68,23 @@ def topk(x: torch.Tensor, k: int):
     _build.check(code, 'topk kernel launch')
     topk.launches += 1
     return vals, inds.long()
+
+
+_topk_op = torch.library.custom_op('offsetguided::topk', _topk_cuda,
+                                   mutates_args=(), device_types='cuda')
+
+
+@_topk_op.register_kernel('cpu')
+def _(x, k):
+    # dense outputs: the strides the fake implementation gives
+    vals, inds = topk_plain(x, k)
+    return vals.contiguous(), inds.contiguous()
+
+
+@_topk_op.register_fake
+def _(x, k):
+    return (x.new_empty((x.shape[0], k), dtype=torch.float32),
+            x.new_empty((x.shape[0], k), dtype=torch.int64))
 
 
 topk.launches = 0

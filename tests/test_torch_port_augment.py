@@ -232,7 +232,8 @@ def test_augment_and_encode_match_jax(datasets):
                                              warp_impl='patch')
     tb = {k: torch.from_numpy(batch[k]) for k in SPEC_KEYS}
     ti, tm, ta = augment.augment_batch_dict(tb, SQUARE, ds.left_index,
-                                            ds.right_index)
+                                            ds.right_index,
+                                            warp_impl='patch')
     assert ti.dtype == torch.uint8 and ti.shape == (3, SQUARE, SQUARE, 3)
     assert np.abs(ti.numpy().astype(int) - np.asarray(ji).astype(int)).max() <= 1
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=0, atol=1e-3)

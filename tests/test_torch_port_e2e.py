@@ -135,7 +135,9 @@ def test_port_imports_no_jax():
             'ops/losses.py', 'data/pipeline.py', 'utils/meters.py',
             'utils/logging.py', 'cli/selfcheck.py', 'cli/bench_data.py',
             'data/pixels.py', 'config/crowdpose.py',
-            'models/hourglass4stage.py'} <= names
+            'models/hourglass4stage.py', 'cli/demo.py', 'cli/export.py',
+            'cli/bench_train.py', 'cli/bench_warp.py', 'cli/bench_stem.py',
+            'visualization/show.py'} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []

@@ -666,3 +666,124 @@ def test_selection_kernels_at_crowdpose_maps(cuda, kernel):
         assert torch.equal(bits(v), bits(pv))
     else:
         assert_nms_topk_matches_plain(x, 32)
+
+
+@pytest.mark.parametrize('shape', ['small', 'bench'])
+def test_tiled_warp_matches_patch_on_the_card(cuda, shape):
+    """`affine_sample_tiled` against `affine_sample` on the card, with the
+    caller's float32 matmul precision at 'high' (TF32 allowed): within the
+    JAX package's tolerance (rtol 1e-3, atol 0.05), and the tiled warp on
+    the card within 1e-3 of the tiled warp on the CPU (small shape). The
+    caller's precision comes back after."""
+    from offsetguided_tpu_torch.ops import augment
+    rng = np.random.RandomState(5)
+    n, h, w, out = (2, 45, 57, (31, 50)) if shape == 'small' else \
+        (4, 640, 640, (512, 512))
+    images = rng.randint(0, 256, (n, h, w, 4), dtype=np.uint8)
+    mats = []
+    for _ in range(n):
+        th, sc = rng.uniform(-np.pi / 4, np.pi / 4), rng.uniform(0.5, 2.0)
+        fwd = np.array([[np.cos(th) * sc, -np.sin(th) * sc],
+                        [np.sin(th) * sc, np.cos(th) * sc]])
+        mats.append(np.hstack([np.linalg.inv(fwd),
+                               rng.uniform(-40, 40, (2, 1))]))
+    mats = np.stack(mats).astype(np.float32)
+    valid = np.stack([[h, w], [h - 7, w - 11]] * (n // 2)).astype(np.int32)
+    border = torch.tensor([124.0, 116.0, 104.0, 255.0])
+    args = [torch.from_numpy(a) for a in (images, mats)]
+    dev_args = [a.to(cuda) for a in args]
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('high')
+    try:
+        t = augment.affine_sample_tiled(*dev_args, out, border.to(cuda),
+                                        torch.from_numpy(valid).to(cuda),
+                                        slope_bound=3.0)
+        assert torch.get_float32_matmul_precision() == 'high'
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    p = augment.affine_sample(*dev_args, out, border.to(cuda),
+                              torch.from_numpy(valid).to(cuda))
+    torch.testing.assert_close(t, p, rtol=1e-3, atol=0.05)
+    if shape == 'small':
+        c = augment.affine_sample_tiled(*args, out, border,
+                                        torch.from_numpy(valid),
+                                        slope_bound=3.0)
+        torch.testing.assert_close(t.cpu(), c, rtol=0, atol=1e-3)
+
+
+def custom_op_cases(cuda):
+    """(op, wrapper, plain, args) for each kernel's custom op on CUDA
+    tensors of its path's kind."""
+    rng = np.random.RandomState(8)
+    maps = torch.from_numpy(rng.rand(34, 40, 40).astype(np.float32) ** 4
+                            ).to(cuda)
+    flat = torch.from_numpy(rng.rand(34, 1600).astype(np.float32)).to(cuda)
+    limbs = torch.from_numpy(person_limbs(rng, 2, 3).astype(np.float32)
+                             ).to(cuda)
+    cfg = DecoderConfig()
+    skel = [j for pair in SK for j in pair]
+    ops = torch.ops.offsetguided
+    return {
+        'peaks_topk': (ops.peaks_topk.default, peaks.peaks_topk,
+                       lambda: peaks.peaks_topk_plain(maps, 32),
+                       (maps, 32, 'bicubic')),
+        'topk': (ops.topk.default, topk.topk,
+                 lambda: topk.topk_plain(flat, 32), (flat, 32)),
+        'nms_topk': (ops.nms_topk.default, nms_topk.nms_topk,
+                     lambda: nms_topk.nms_topk_plain(maps, 32), (maps, 32)),
+        'group_skeletons': (
+            ops.group_skeletons.default, grouping.group_skeletons,
+            lambda: plain_grouping.group_skeletons(limbs, SK, cfg),
+            (limbs, skel, 17, cfg.capacity, cfg.max_poses,
+             cfg.settle_passes, cfg.sort_dim, cfg.use_scale, cfg.dist_max,
+             cfg.person_thre)),
+    }
+
+
+@pytest.mark.parametrize('name', ['peaks_topk', 'topk', 'nms_topk',
+                                  'group_skeletons'])
+def test_custom_op_launches_the_kernel(cuda, name):
+    """`torch.ops.offsetguided.<name>` on CUDA tensors launches the kernel
+    (its wrapper's count goes up by one), passes `torch.library.opcheck`
+    (the fake implementation's shapes, dtypes and strides, no aliasing)
+    and equals the plain version."""
+    op, wrapper, plain, args = custom_op_cases(cuda)[name]
+    before = wrapper.launches
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.library.opcheck(op, args)
+    want = plain()
+    if name == 'group_skeletons':
+        assert torch.equal(out[2], want[2])
+        torch.testing.assert_close(out[1], want[1], atol=1e-5, rtol=0)
+        assert pose_sets_match(out[0], want[0], out[2], 1e-4)
+        return
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+
+
+def test_export_with_decode_on_the_card(cuda, tmp_path):
+    """A tiny fp32 model's forward + decode exported on the card, saved and
+    loaded: bit-equal to the eager run, the peaks and grouping kernels
+    launched by the loaded program."""
+    from offsetguided_tpu_torch.cli import export
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.ops.image import normalize_images
+    args = export.cli(['--debug-tiny-model', '--input-size', '128'])
+    model = export.build_model(args, cuda).prepare_inference()
+    pp = PostProcessor(cfg=DecoderConfig())
+    x = normalize_images(torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(cuda))
+    path = str(tmp_path / 'tiny.pt2')
+    torch.export.save(export.export_program(model, x, pp), path)
+    with torch.inference_mode():
+        eager = export.Forward(model, pp)(x)
+    program = torch.export.load(path).module()
+    before = (peaks.peaks_topk.launches, grouping.group_skeletons.launches)
+    got = program(x)
+    torch.cuda.synchronize()
+    assert (peaks.peaks_topk.launches, grouping.group_skeletons.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)

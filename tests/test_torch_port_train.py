@@ -525,10 +525,29 @@ def test_cli_trains_with_loader_workers_and_resumes(tiny_set, tmp_path):
     assert torch.load(r['checkpoint'], weights_only=False)['step'] == 3
 
 
+def test_cli_trains_one_step_on_the_tiled_warp(tiny_set, tmp_path,
+                                              monkeypatch):
+    """The device-aug route defaults to the tiled warp, as the JAX trainer
+    does, at the trainer's slope bound (`warp_slope_bound` of its
+    augmentation flags); one CPU step on it gives finite losses and no
+    skipped step. (The tiled warp against the patch warp and JAX's:
+    tests/test_torch_port_warp_tiled.py.)"""
+    from offsetguided_tpu_torch.ops import augment
+    calls = []
+    tiled = augment.affine_sample_tiled
+    monkeypatch.setattr(augment, 'affine_sample_tiled', lambda *a, **kw: (
+        calls.append(kw['slope_bound']), tiled(*a, **kw))[1])
+    argv = cli_args(tiny_set, tmp_path, '--max-steps', '1')
+    assert train_cli.cli(argv).warp_impl == 'tiled'
+    h = train_cli.main(argv)['history'][0]
+    assert h['skipped'] == 0.0
+    assert all(np.isfinite(h[k]) for k in ('total', 'hmp', 'omp'))
+    assert calls and set(calls) == {np.sqrt(2.0) / (0.5 * 0.95)}
+
+
 @pytest.mark.parametrize('flags', [
     ['--device-aug', '--distributed'], ['--device-aug', '--freeze', 'hmp'],
-    ['--device-aug', '--drop-layers', 'hmp'],
-    ['--device-aug', '--warp-impl', 'tiled']])
+    ['--device-aug', '--drop-layers', 'hmp']])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         train_cli.cli(['--train-image-dir', 'i', '--train-annotations', 'a']
