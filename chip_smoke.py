@@ -28,6 +28,13 @@ batch 8, bf16):
   kernels), the trained model's records equal to the plain versions';
 - one fp32 train step of a tiny model, card against CPU, on a seeded
   batch and on a host-route batch;
+- data parallel (`cli.train --distributed`): `[ddp]` at world size 1 over
+  NCCL in turns with one process (img/s, peak memory), then two gloo
+  ranks sharing the card (global losses, ranks bit-equal, rank 0 alone
+  writing the checkpoint, peak memory a rank); `[ddp one-step]` (one
+  card process against two gloo ranks on the card, the one-step
+  tolerances); `[dryrun]` (`parallel/dryrun.py::dryrun_multichip(2)` on
+  the card);
 - the CrowdPose configuration (14 keypoints, 17 limbs; the grouping
   kernel's general build): `[crowdpose]` serving at full width, flip off
   and on, with every kernel held against its plain version at M = 8 * 14
@@ -52,7 +59,8 @@ batch 8, bf16):
   kernels' custom ops against their CUDA implementations called
   directly, in turns;
 - the port's JPEG / PNG codec built on the card's host (`[codec]`: pinned
-  body and pixel digests, decode ms), and the serving front end and its
+  body and pixel digests, the committed progressive bodies' pixels,
+  decode ms of a baseline and a progressive 480x640 body), and the serving front end and its
   tools: `cli.serve`'s HTTP server on port 0 (48 concurrent JPEG POSTs,
   upsampled and `--lowres-decode`), `cli.bench`, `cli.bench_serve` (the
   server as a subprocess, concurrency 16 for 15 s), `cli.bench_e2e` (100
@@ -365,39 +373,6 @@ def pose_sets_match(p, rp, counts, atol: float) -> bool:
     return True
 
 
-def decodes_match(p, s, c, rp, rs, rc) -> bool:
-    """Two decodes of a batch, (poses, scores, counts), agree up to fp32
-    ties: counts equal; per image, the kept scores equal within 1e-5 as
-    sorted lists, and the kept poses equal within 1e-4 as sets (matched as
-    `pose_sets_match` matches them), leaving out the poses whose score ties
-    (within 1e-5) with the last kept one where the count passes max_poses:
-    which of several tied poses the cut keeps depends on the last bit of
-    each person's masked-mean score, which the grouping kernel and its
-    plain version sum in other orders."""
-    if not np.array_equal(c.cpu().numpy(), rc.cpu().numpy()):
-        return False
-    p, s, rp, rs = (t.cpu().numpy() for t in (p, s, rp, rs))
-    for i, ci in enumerate(c.tolist()):
-        k = min(ci, p.shape[1])
-        a, b = s[i, :k], rs[i, :k]
-        if not np.allclose(np.sort(a), np.sort(b), rtol=0, atol=1e-5):
-            return False
-        if not np.array_equal(p[i, k:], rp[i, k:]):
-            return False
-        keep = (a > a.min() + 1e-5) if ci > k else np.ones(k, bool)
-        rkeep = (b > b.min() + 1e-5) if ci > k else np.ones(k, bool)
-        unused = [j for j in range(k) if rkeep[j]]
-        for row in p[i, :k][keep]:
-            hit = next((j for j in unused if np.allclose(
-                row, rp[i, j], rtol=0, atol=1e-4)), None)
-            if hit is None:
-                return False
-            unused.remove(hit)
-        if unused:
-            return False
-    return True
-
-
 def with_sentinels(packed):
     """Copy of packed limbs with +inf off-image rows, NaN rows and one NaN
     scale, and keypoint indices lifted by 2.5 M."""
@@ -587,6 +562,35 @@ CODEC_DIGESTS = {
     'png rgb': (None, '8d57d6096548b0f1'),
     'png grey': (None, '12c7c2080c682715'),
 }
+
+
+# Progressive JPEG bodies written by cv2.imencode (IMWRITE_JPEG_PROGRESSIVE,
+# libjpeg-turbo's scan script) from `codec_image` scenes, committed under
+# tests/torch_port_data/ (the port's encoder writes baseline only): name ->
+# (file, body digest, pixel digest); the pixel digests are cv2.imdecode's,
+# pinned on the CPU by tests/test_torch_port_codec_progressive.py. The
+# 480x640 4:2:0 q95 scene is 'jpeg 420 q95''s, and decodes to its pixels.
+PROGRESSIVE_DIR = os.path.join('tests', 'torch_port_data')
+PROGRESSIVE_DIGESTS = {
+    'progressive 420 q95': ('prog_420_q95.jpg', '0d6459c97007503a',
+                            '497b647b8816af9c'),
+    'progressive 444 q90': ('prog_444_q90.jpg', '579f926c0039390a',
+                            'e1c4adf84acd3f62'),
+    'progressive grey q75': ('prog_grey_q75.jpg', '0a61e47fcd672ca4',
+                             '6b7d8476d6911629'),
+    'progressive 420 q50 restart 2': ('prog_420_q50_rst2.jpg',
+                                      'ff98666828a54b2e', 'd175baedcf10c396'),
+}
+
+
+def progressive_cases():
+    """[(name, body)] of the committed progressive bodies."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for name, (fn, _, _) in PROGRESSIVE_DIGESTS.items():
+        with open(os.path.join(root, PROGRESSIVE_DIR, fn), 'rb') as f:
+            out.append((name, f.read()))
+    return out
 
 
 def codec_digests(body: bytes, pixels: np.ndarray):
@@ -1724,7 +1728,9 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
                    never=('topk', 'nms_topk'))
     with plain_kernels():
         rp, rs, rc = infer(images)
-    if not decodes_match(poses, scores, counts, rp, rs, rc):
+    if not (torch.equal(counts, rc)
+            and float((poses - rp).abs().max()) <= 1e-4
+            and float((scores - rs).abs().max()) <= 1e-5):
         fail(f'train hand-off: kernel and plain decodes differ: counts '
              f'{counts.tolist()} vs {rc.tolist()}, poses by '
              f'{float((poses - rp).abs().max())}, scores by '
@@ -2077,6 +2083,170 @@ def phase_train_one_step(dev, root):
                  f'CPU tests\' tolerances')
 
 
+# [ddp]: cli/train.py --distributed at world size 1 over NCCL, in turns
+# with the one-process run, and two gloo ranks sharing the card
+DDP_STEPS, DDP_TURNS, DDP_GLOO_STEPS = 8, 2, 4
+
+
+def ddp_argv(img_dir, ann, ckpt_dir, steps):
+    """The [train] configuration (device-aug route, 512^2, global batch
+    16), `steps` steps, no epoch-end checkpoint (the last step writes
+    one)."""
+    return ['--device-aug', '--train-image-dir', img_dir,
+            '--train-annotations', ann, '--batch-size', str(TRAIN_BATCH),
+            '--square-length', str(TRAIN_SIZE), '--max-steps', str(steps),
+            '--print-freq', '1', '--save-every', '1000',
+            '--checkpoint-dir', ckpt_dir]
+
+
+def ddp_history_ok(tag, hist, steps):
+    """Finite losses and no skipped step over `steps` records; returns
+    img/s over steps 3-`steps` (host clock) and the median step (ms)."""
+    if len(hist) != steps:
+        fail(f'{tag}: {len(hist)} step records, not {steps}')
+    if not all(np.isfinite(h[k]) for h in hist
+               for k in ('total', 'hmp', 'omp', 'scmp')):
+        fail(f'{tag}: non-finite losses')
+    if any(h['skipped'] for h in hist):
+        fail(f'{tag}: skipped steps')
+    rate = TRAIN_BATCH * (steps - 2) / (hist[-1]['t'] - hist[1]['t'])
+    gaps = sorted(b['t'] - a['t'] for a, b in zip(hist[1:], hist[2:]))
+    return rate, gaps[len(gaps) // 2] * 1e3
+
+
+def phase_ddp(dev, root):
+    """`cli.train --distributed` on the card at the [train] configuration
+    (full-width Hourglass-104, 512^2, global batch 16, device-aug route):
+    world size 1 over NCCL and the one-process run in turns, 8 steps each,
+    img/s and peak memory side by side (the cost of the process group,
+    the synchronized BatchNorm's collectives and DDP); then two gloo ranks
+    sharing the card (`--share-device`, 8 images a rank), 4 steps: finite
+    global losses, no skipped step, the ranks' weights bit-equal (SHA-256
+    of each rank's state dict), rank 0 alone writing the checkpoint, and
+    each rank's peak memory."""
+    import shutil
+    import torch
+    from offsetguided_tpu_torch.cli import train
+    from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
+    from offsetguided_tpu_torch.parallel import distributed, parity
+
+    img_dir, ann = make_hard_dataset(os.path.join(root, 'ddp'),
+                                     n_images=TRAIN_IMAGES, seed=0, ext='npy')
+    world1 = ['--distributed', '--num-processes', '1', '--process-id', '0']
+    runs = {'one process': [], 'ddp world 1 (NCCL)': []}
+    for turn in range(DDP_TURNS):
+        for tag, out in runs.items():
+            ck = os.path.join(root, 'ddp_ck')
+            extra = [] if tag == 'one process' else world1 + [
+                '--coordinator-address',
+                f'localhost:{distributed.free_port()}']
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            r = train.main(ddp_argv(img_dir, ann, ck, DDP_STEPS) + extra)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if distributed.active():
+                fail('[ddp] the process group outlived cli.train.main')
+            rate, med = ddp_history_ok(f'[ddp] {tag}', r['history'],
+                                       DDP_STEPS)
+            out.append((rate, med, peak))
+            log(f'[ddp] turn {turn + 1}, {tag}: {rate:.2f} img/s (host '
+                f'clock over steps 3-{DDP_STEPS}), median step {med:.1f} ms, '
+                f'peak memory {peak:.2f} GiB | {card_line()}')
+            shutil.rmtree(ck, ignore_errors=True)
+            del r
+    (a, b) = (np.mean([x[0] for x in v]) for v in runs.values())
+    log(f'[ddp] world size 1 against one process, {DDP_TURNS} turns each: '
+        f'{b:.2f} / {a:.2f} img/s (ratio {b / a:.3f}) | {card_line()}')
+
+    ck = os.path.join(root, 'ddp_gloo')
+    argv = ['--device', 'cuda', '--share-device'] + ddp_argv(
+        img_dir, ann, ck, DDP_GLOO_STEPS)
+    torch.cuda.empty_cache()
+    ranks = [r[0] for r in distributed.spawn(
+        parity.train_cli, 2, [(argv, distributed.free_port())], 4, False,
+        timeout=900)]
+    for r in ranks:
+        ddp_history_ok(f'[ddp] gloo rank {r["rank"]}', r['history'],
+                       DDP_GLOO_STEPS)
+    r0, r1 = ranks
+    if r0['digest'] != r1['digest']:
+        fail('[ddp] gloo ranks end with different weights')
+    if r1['checkpoint'] is not None or sorted(os.listdir(ck)) != [
+            os.path.basename(r0['checkpoint'])]:
+        fail(f'[ddp] checkpoints: rank 0 {r0["checkpoint"]}, rank 1 '
+             f'{r1["checkpoint"]}, written {sorted(os.listdir(ck))}')
+    if [h['total'] for h in r0['history']] != [h['total'] for h in
+                                               r1['history']]:
+        fail('[ddp] gloo ranks report different global losses')
+    shutil.rmtree(ck, ignore_errors=True)
+    rate = TRAIN_BATCH * (DDP_GLOO_STEPS - 2) / (
+        r0['history'][-1]['t'] - r0['history'][1]['t'])
+    log(f'[ddp] two gloo ranks sharing the card, {DDP_GLOO_STEPS} steps of '
+        f'global batch {TRAIN_BATCH}: losses finite, no skipped step, global '
+        f'total {r0["history"][0]["total"]:.4f} -> '
+        f'{r0["history"][-1]["total"]:.4f} on both ranks, weights bit-equal '
+        f'(sha256 {r0["digest"][:16]}), rank 0 alone wrote the checkpoint; '
+        f'{rate:.2f} img/s over steps 3-{DDP_GLOO_STEPS}; peak memory rank 0 '
+        f'{r0["peak_gib"]:.2f} GiB, rank 1 {r1["peak_gib"]:.2f} GiB | '
+        f'{card_line()}')
+
+
+def phase_ddp_one_step(dev):
+    """The one-step check's tiny model and batch (`tiny_train_batch`), TF32
+    off: one SGD step in this process on the card, on the whole batch,
+    against two gloo ranks sharing the card, one image each, at the CPU
+    tests' tolerances (`one_step_ok`). fp32 is held first; where it meets
+    a near-tie of rounding the fp64 step must pass (as `[train one-step]`
+    holds its host-route batch)."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import ModelConfig
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.models.network import init_reference_
+    from offsetguided_tpu_torch.parallel import distributed, parity
+
+    images, anns, mask = tiny_train_batch()
+    init = init_reference_(PoseNet(ModelConfig(**TINY_TRAIN)),
+                           torch.Generator().manual_seed(0))
+    state = {k: v.numpy() for k, v in init.state_dict().items()}
+    kw = dict(model_kw=TINY_TRAIN, state=state, images=images, anns=anns,
+              mask=mask)
+    for dtype in ('float32', 'float64'):
+        ranks = distributed.spawn(parity.run_cases, 2, [
+            ('step', 'train_step', dict(kw, dtype=dtype))], 'cuda', True, 2)
+        if ranks[0]['step']['digest'] != ranks[1]['step']['digest']:
+            fail(f'[ddp one-step] {dtype}: the ranks end with different '
+                 f'weights')
+        e = parity.step_errors(
+            state, parity.train_step(dev, **kw, dtype=dtype),
+            ranks[0]['step'])
+        ok = one_step_ok(e)
+        log(f'[ddp one-step] {dtype} SGD step of the tiny model, one card '
+            f'process vs two gloo ranks on the card (1 + 1 images): losses '
+            f'max rel err {e["loss"]:.3g}, gradients max (|diff| - 1e-3 |g|) '
+            f'{e["grad"]:.3g} of the largest gradient {e["grad_max"]:.3g}, '
+            f'BN statistics max abs err {e["bn"]:.3g}: '
+            f'{"within" if ok else "past"} the one-step tolerances')
+        if ok:
+            return
+    fail('[ddp one-step]: one card process and two ranks differ past the '
+         'one-step tolerances in fp32 and in fp64')
+
+
+def phase_dryrun():
+    """`parallel/dryrun.py::dryrun_multichip(2)` with both gloo ranks on
+    the card: one data-parallel step of the dry run's narrow Hourglass-104,
+    each rank's forward + decode and device augmentation, the shapes and
+    finiteness `_dryrun_impl` asserts, and the ranks' weights bit-equal."""
+    from offsetguided_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    out = dryrun_multichip(2, device='cuda')
+    log(f'[dryrun] 2 gloo ranks on the card: loss {out[0]["loss"]:.6g}, '
+        f'poses {out[0]["poses_shape"]} a rank, warped images '
+        f'{out[0]["aug_shape"]} a rank, weights bit-equal (sha256 '
+        f'{out[0]["checksum"][:16]}); {time.perf_counter() - t0:.1f} s')
+
+
 def phase_codec():
     """The port's JPEG / PNG codec, built on this host: the pinned bodies
     decode to the pinned pixels (CODEC_DIGESTS, equal to cv2.imdecode's
@@ -2093,8 +2263,18 @@ def phase_codec():
     log(f'[codec] {len(CODEC_CASES)} bodies (JPEG 4:4:4, 4:2:2, 4:2:0, '
         f'4:4:0, 4:1:1, restarts, grey; PNG RGB, grey): bodies and pixels '
         f'equal to the pinned digests')
+    for name, body in progressive_cases():
+        got = codec_digests(body, codec.decode(body))
+        if got != PROGRESSIVE_DIGESTS[name][1:]:
+            fail(f'[codec] {name}: digests {got}, pinned '
+                 f'{PROGRESSIVE_DIGESTS[name][1:]}')
+    log(f'[codec] {len(PROGRESSIVE_DIGESTS)} progressive bodies (cv2-written:'
+        f' 4:2:0, 4:4:4, grey, restarts): pixels equal to cv2.imdecode\'s '
+        f'pinned digests')
     bodies = dict(codec_cases())
-    timed = [('480x640 q95 4:2:0 noisy gradient', bodies['jpeg 420 q95'])]
+    timed = [('480x640 q95 4:2:0 noisy gradient', bodies['jpeg 420 q95']),
+             ('480x640 q95 4:2:0 noisy gradient, progressive',
+              dict(progressive_cases())['progressive 420 q95'])]
     timed += [(f'{codec.decode(b).shape[1]}x{codec.decode(b).shape[0]} '
                f'painted hard-set scene', b) for b in make_test_jpegs(2)]
     for what, body in timed:
@@ -2120,7 +2300,9 @@ def phase_serve_http(dev):
     """`cli.serve`'s HTTP server at full width (batch 8, 640^2, flip off)
     on port 0 in a thread, upsampled and `--lowres-decode`: 48 concurrent
     POSTs of codec JPEGs of the hard set's mixed sizes; every answer 200
-    with poses of 17 keypoints; each mode's kernels launched."""
+    with poses of 17 keypoints; each mode's kernels launched. The
+    upsampled server then answers the committed progressive 480x640 body
+    200 with the poses it gives the PNG of the same pixels."""
     from offsetguided_tpu_torch.cli.bench_serve import make_test_jpegs
 
     bodies = make_test_jpegs(SERVE_REQUESTS, seed=1)
@@ -2128,14 +2310,27 @@ def phase_serve_http(dev):
              'serve_http_lowres': (['--lowres-decode'],
                                    ('nms_topk', 'grouping'),
                                    ('peaks', 'topk'))}
-    return {path: serve_burst(dev, path, extra, need, never, bodies, J)
+    twins = dict(progressive_cases())['progressive 420 q95']
+    return {path: serve_burst(dev, path, extra, need, never, bodies, J,
+                              twins if path == 'serve_http' else None)
             for path, (extra, need, never) in modes.items()}
 
 
-def serve_burst(dev, path, extra, need, never, bodies, n_kp) -> dict:
+def post_json(url, body, timeout=300):
+    """(status, JSON answer) of one POST /v1/poses."""
+    import urllib.request
+    req = urllib.request.Request(url + '/v1/poses', data=body)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def serve_burst(dev, path, extra, need, never, bodies, n_kp,
+                progressive=None) -> dict:
     """One full-width `cli.serve` server (its flags plus `extra`) on port 0
     in a thread, `bodies` POSTed at once: every answer 200 with poses of
     `n_kp` keypoints, the kernels of `need` launched and none of `never`.
+    With a `progressive` JPEG body, that body and the PNG of its pixels
+    are then POSTed one after the other: both 200, the same poses.
     Returns the path's launches."""
     import torch
     import urllib.request
@@ -2178,9 +2373,22 @@ def serve_burst(dev, path, extra, need, never, bodies, n_kp) -> dict:
         launches = read_launches()
         with urllib.request.urlopen(url + '/metrics', timeout=30) as r:
             m = json.loads(r.read())
+        if progressive is not None:
+            from offsetguided_tpu_torch.data import codec
+            png = codec.encode_png(codec.decode(progressive))
+            twin = [post_json(url, b) for b in (progressive, png)]
     finally:
         srv.shutdown()
         srv.server_close()
+    if progressive is not None:
+        for _, a in twin:
+            a.pop('latency_ms', None)
+        if [st for st, _ in twin] != [200, 200] or twin[0][1] != twin[1][1]:
+            fail(f'{path}: the progressive body and its PNG twin answered '
+                 f'{[st for st, _ in twin]}, poses equal: '
+                 f'{twin[0][1] == twin[1][1]}')
+        log(f'[serve http] {path}: a progressive 480x640 JPEG POSTed: 200, '
+            f'{len(twin[0][1]["poses"])} poses, equal to its PNG twin\'s')
     bad = [a for a in answers if a is None or a[0] != 200]
     if bad:
         fail(f'{path}: {len(bad)} of {len(bodies)} requests failed: '
@@ -3136,6 +3344,9 @@ def main() -> int:
         phase_train_crowdpose(dev, root)
         launches.update(phase_selfcheck(dev, root))
         phase_train_one_step(dev, root)
+        phase_ddp(dev, root)
+        phase_ddp_one_step(dev)
+        phase_dryrun()
         phase_4stage_reference(dev)
         phase_bench_train()
         phase_bench_warp()

@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Training on one device.
+"""Training on one device, or data parallel over processes
+(`--distributed`).
 
 Port of the JAX package's `cli/train.py` with its flag names and defaults,
 on `--device` (the card unless told otherwise). Each step: the loader (one
@@ -25,8 +26,21 @@ and `--remat` apply, the Hourglass-104 width flags do not, and
 `--debug-tiny-model` narrows only Hourglass-104, as in the JAX package).
 The device-aug warp is `--warp-impl tiled` (windowed banded matmuls, the
 default, as in the JAX package) or `patch` (the 4x4-footprint gather).
-Not ported, refused with a message: `--distributed`, `--freeze` and
-`--drop-layers`.
+Not ported, refused with a message: `--freeze` and `--drop-layers`.
+
+`--distributed` trains data parallel, one process per device
+(`parallel/distributed.py`), as the JAX trainer's processes do: each
+iterates the same seeded global batch stream and keeps its contiguous
+slice (`--batch-size` is the global batch and must divide by the number
+of processes); BatchNorm statistics, loss normalizers and gradients are
+the global batch's, so the step is the one-process step on the whole
+batch. Rank 0 logs and writes the checkpoints (the others wait for each
+write at a barrier); `--resume` loads on every rank. The group meets at
+`--coordinator-address host:port` with `--num-processes` and
+`--process-id`, or, without an address, through torchrun's environment
+(`torchrun --nproc-per-node N -m offsetguided_tpu_torch.cli.train
+--distributed ...`). NCCL on the cards; gloo on the CPU and with
+`--share-device` (ranks sharing one card).
 
     python -m offsetguided_tpu_torch.cli.train \\
         --train-image-dir images --train-annotations ann.json
@@ -157,6 +171,9 @@ def cli(argv=None):
     g.add_argument('--coordinator-address', default=None)
     g.add_argument('--num-processes', type=int, default=None)
     g.add_argument('--process-id', type=int, default=None)
+    g.add_argument('--share-device', action='store_true',
+                   help='--distributed ranks share one card: gloo instead '
+                        'of NCCL (which needs a card per rank)')
     g.add_argument('--seed', type=int, default=0)
     g.add_argument('--loader-workers', type=int, default=0,
                    help='loader processes (0 = one background thread)')
@@ -167,8 +184,6 @@ def cli(argv=None):
     args = p.parse_args(argv)
 
     refused = [
-        (args.distributed, '--distributed: multi-process training is not '
-         'ported'),
         (args.freeze is not None, '--freeze is not ported'),
         (args.drop_layers is not None, '--drop-layers is not ported'),
     ]
@@ -234,13 +249,32 @@ def device_batch(batch, dataset, dev, enc_cfg, skeleton,
 
 def main(argv=None) -> Dict:
     """Trains; returns a summary: `steps`, `checkpoint` (the last path
-    written), `history` (one record per printed step: the losses,
-    `skipped`, `host_wait_s`, `feed_s`, `imgs_per_sec`, the host clock `t`
-    after the step finished and, on a CUDA device, `feed_ms` and `step_ms`
-    by CUDA events over the printed interval), `val` (one record per
-    validation pass: `epoch`, `loss`, `batches`), `device` and
-    `model_cfg`."""
+    written; None on ranks other than 0), `history` (one record per
+    printed step: the losses, `skipped`, `host_wait_s`, `feed_s`,
+    `imgs_per_sec`, the host clock `t` after the step finished and, on a
+    CUDA device, `feed_ms` and `step_ms` by CUDA events over the printed
+    interval), `val` (one record per validation pass: `epoch`, `loss`,
+    `batches`), `device`, `model_cfg`, the trained `model`, and `rank` /
+    `world`. With
+    `--distributed` the losses are the global batch's on every rank, and
+    the process group is left at the end, also on an error."""
     args = cli(argv)
+    if not args.distributed:
+        from ..device import resolve_device
+        return train(args, resolve_device(args.device))
+    from ..parallel import distributed
+    dev = distributed.init_distributed(
+        args.coordinator_address, args.num_processes, args.process_id,
+        args.device, args.share_device)
+    try:
+        return train(args, dev)
+    finally:
+        distributed.destroy()
+
+
+def train(args, dev) -> Dict:
+    """`main` on the parsed flags and the resolved device (in the process
+    group already where `--distributed`)."""
     # torch is imported here, not at the top: loader processes re-import
     # this module when it is the main one, and need no torch
     import torch
@@ -248,20 +282,24 @@ def main(argv=None) -> Dict:
                                    HeadsConfig, LossConfig, SkeletonConfig,
                                    TrainConfig)
     from ..data.pipeline import CocoKeypoints, batch_iterator
-    from ..device import resolve_device
     from ..models import PoseNet
     from ..models import checkpoint as ckpt
     from ..models.checkpoint import load_reference_checkpoint
     from ..models.network import init_reference_
+    from ..parallel import distributed as D
     from ..parallel.train_step import (TrainStep, make_eval_step,
                                        make_optimizer, step_lr_schedule)
     from ..utils.logging import configure, log_record
     from ..utils.meters import AverageMeter, Throughput
 
-    configure(args.log_file)
+    primary = D.is_primary()
+    configure(args.log_file if primary else None, quiet=not primary)
     logger = logging.getLogger('train')
-    dev = resolve_device(args.device)
     cuda = dev.type == 'cuda'
+    group = D.group()
+    if args.batch_size % D.world():
+        raise ValueError(f'--batch-size {args.batch_size} does not divide '
+                         f'by {D.world()} processes')
 
     skeleton = SkeletonConfig.for_dataset(args.dataset, args.n_limbs)
     heads = HeadsConfig(
@@ -302,8 +340,8 @@ def main(argv=None) -> Dict:
         max_persons=args.max_persons, n_images=args.n_images,
         device_aug=args.device_aug, raw_canvas=args.raw_canvas)
     steps_per_epoch = max(len(dataset) // args.batch_size, 1)
-    logger.info('dataset: %d images, %d steps/epoch, device %s',
-                len(dataset), steps_per_epoch, dev)
+    logger.info('dataset: %d images, %d steps/epoch, device %s, %d '
+                'process(es)', len(dataset), steps_per_epoch, dev, D.world())
 
     model = init_reference_(PoseNet(model_cfg),
                             torch.Generator().manual_seed(args.seed))
@@ -327,15 +365,26 @@ def main(argv=None) -> Dict:
                     start_epoch, start_step)
     train_step = TrainStep(model, optimizer, loss_cfg,
                            step_lr_schedule(train_cfg, steps_per_epoch),
-                           train_cfg.loss_explosion_guard, args.max_grad_norm)
+                           train_cfg.loss_explosion_guard, args.max_grad_norm,
+                           group=group)
     train_step.step = start_step
 
     from ..ops.augment import warp_slope_bound
     slope_bound = warp_slope_bound(aug_cfg)
 
     def feed(batch):
-        return device_batch(batch, dataset, dev, enc_cfg, skeleton,
-                            args.square_length, args.warp_impl, slope_bound)
+        """This rank's slice of a global host batch, on the device."""
+        return device_batch(D.local_batch(batch), dataset, dev, enc_cfg,
+                            skeleton, args.square_length, args.warp_impl,
+                            slope_bound)
+
+    def save(epoch):
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        path = (ckpt.save_checkpoint(args.checkpoint_dir, model, optimizer,
+                                     train_step.step, epoch, meter.avg)
+                if primary else None)
+        D.barrier()
+        return path
 
     val_dataset = None
     if args.val_image_dir and args.val_annotations:
@@ -343,7 +392,7 @@ def main(argv=None) -> Dict:
             args.val_image_dir, args.val_annotations, skeleton=skeleton,
             aug=None, square_length=args.square_length,
             max_persons=args.max_persons)
-        eval_step = make_eval_step(model, loss_cfg)
+        eval_step = make_eval_step(model, loss_cfg, group)
     val_history = []
 
     def run_validation(epoch):
@@ -383,9 +432,7 @@ def main(argv=None) -> Dict:
             batch = next(it, None)
             if batch is None:
                 if (epoch - start_epoch) % args.save_every != 0:
-                    path = ckpt.save_checkpoint(args.checkpoint_dir, model,
-                                                optimizer, train_step.step,
-                                                epoch, meter.avg)
+                    path = save(epoch)
                     logger.info('final checkpoint %s', path)
                 break
             t1 = time.perf_counter()
@@ -421,9 +468,7 @@ def main(argv=None) -> Dict:
                            feed_s=rec['feed_s'])
                 host_wait = feed_time = 0.0
             if last:
-                path = ckpt.save_checkpoint(args.checkpoint_dir, model,
-                                            optimizer, train_step.step,
-                                            epoch, meter.avg)
+                path = save(epoch)
                 logger.info('max-steps reached, checkpoint %s', path)
                 break
             if step % steps_per_epoch == 0:
@@ -432,15 +477,14 @@ def main(argv=None) -> Dict:
                     logger.info('epoch %d val loss %.4f', epoch,
                                 run_validation(epoch))
                 if (epoch - start_epoch) % args.save_every == 0:
-                    path = ckpt.save_checkpoint(args.checkpoint_dir, model,
-                                                optimizer, train_step.step,
-                                                epoch, meter.avg)
+                    path = save(epoch)
                     logger.info('epoch %d done, checkpoint %s', epoch, path)
                 meter.reset()
     finally:
         it.close()
     return dict(steps=step, checkpoint=path, history=history,
-                val=val_history, device=str(dev), model_cfg=model_cfg)
+                val=val_history, device=str(dev), model_cfg=model_cfg,
+                model=model, rank=D.rank(), world=D.world())
 
 
 if __name__ == '__main__':

@@ -8,10 +8,27 @@
 // table), "fancy" triangle upsampling for h2v1 / h2v2 (where the
 // component's downsampled width is above 2) and h1v2 chroma, box
 // replication for the other integral factors (4:1:1 among them), and
-// jdcolor.c's YCbCr -> RGB tables. Sequential Huffman scans only (SOF0 and
-// SOF1, 8-bit, interleaved or not, restart markers); progressive,
-// arithmetic-coded, lossless and 12-bit streams are refused with their own
-// error code. Truncated entropy data decodes as zero bits, as libjpeg does.
+// jdcolor.c's YCbCr -> RGB tables. Huffman-coded 8-bit DCT streams:
+// sequential (SOF0, SOF1) and progressive (SOF2), interleaved scans or not,
+// restart markers; arithmetic-coded, lossless, hierarchical and 12-bit
+// streams are refused with their own error code. Entropy data cut short by
+// a marker decodes as zero bits up to the end of that MCU, and the MCUs
+// after it in the segment are left as they are (jdhuff.c / jdphuff.c
+// insufficient_data); a body that ends before its EOI marker is refused
+// (E_TRUNCATED), as cv2.imdecode returns nothing for it.
+//
+// Progressive scans (jdphuff.c: DC first and refine, AC first with EOB
+// runs, AC refine with correction bits) fill the whole-image coefficient
+// buffer; the IDCT, upsampling and colour conversion then run as for a
+// sequential stream. libjpeg-turbo smooths the blocks of a progressive
+// image (jdcoefct.c decompress_smooth_data) when, after the last scan, one
+// of the first nine AC coefficients (zigzag 1-9) of some component is not
+// fully refined: its coef_bits entry is not 0 (-1 for never sent, the
+// missing low bits otherwise). Such a body is refused (E_PARTIAL) rather
+// than decoded to pixels that differ from cv2's. Accepted: every component
+// with coef_bits[1..9] all 0 (every complete file cv2 writes), or a stream
+// libjpeg would not smooth anyway (a component with no DC data, with no
+// scan at all, or with a zero among its first ten quantizers).
 //
 // The encoder writes what libjpeg-turbo's jpeg_set_defaults + set_quality
 // writes (cv2.imencode's stream): JFIF APP0, the standard tables scaled by
@@ -32,7 +49,6 @@ enum Error {
   OK = 0,
   E_NOT_JPEG = 1,
   E_CORRUPT = 2,
-  E_PROGRESSIVE = 3,
   E_ARITHMETIC = 4,
   E_LOSSLESS = 5,
   E_PRECISION = 6,
@@ -45,6 +61,8 @@ enum Error {
   E_TABLES = 13,
   E_PNG_FILTER = 14,
   E_MEMORY = 15,
+  E_PARTIAL = 16,
+  E_TRUNCATED = 17,
 };
 
 // Largest image decoded or encoded (pixels): a body of a few bytes may
@@ -267,6 +285,8 @@ struct BitReader {
   int marker = 0;             // the marker that stopped the stream
   const uint8_t* marker_at = nullptr;   // its first 0xFF
   const uint8_t* after_marker = nullptr;
+  int pad = 0;                // zero bits fed past the data, at buf's end
+  bool starved = false;       // a bit past the data was consumed
 
   void fill() {
     while (n <= 56) {
@@ -293,22 +313,30 @@ struct BitReader {
       }
       buf = (buf << 8) | c;
       n += 8;
+      if (marker) pad += 8;
     }
   }
   inline unsigned peek(int k) {
     if (n < k) fill();
     return unsigned(buf >> (n - k)) & ((1u << k) - 1);
   }
-  inline void skip(int k) { n -= k; }
+  inline void skip(int k) {
+    n -= k;
+    if (n < pad) {
+      starved = true;
+      pad = n;
+    }
+  }
   inline int get(int k) {
     if (k == 0) return 0;
     unsigned v = peek(k);
-    n -= k;
+    skip(k);
     return int(v);
   }
   void reset() {
     buf = 0;
     n = 0;
+    pad = 0;
   }
 };
 
@@ -363,6 +391,10 @@ struct Decoder {
   int mcux = 0, mcuy = 0;
   Component comp[3];
   int scans = 0;
+  bool saw_eoi = false;
+  bool progressive = false;
+  int coef_bits[3][64];       // jdphuff.c: the low bit last sent, -1 none
+  int eobrun = 0;
 
   int u16(const uint8_t* q) const { return (q[0] << 8) | q[1]; }
 
@@ -419,8 +451,10 @@ struct Decoder {
     }
   }
 
-  int parse_sof(const uint8_t* s, int len) {
+  int parse_sof(const uint8_t* s, int len, bool prog) {
     if (have_frame) return E_CORRUPT;
+    progressive = prog;
+    std::memset(coef_bits, 0xFF, sizeof coef_bits);
     if (len < 6) return E_CORRUPT;
     if (s[0] != 8) return E_PRECISION;
     height = u16(s + 1);
@@ -502,7 +536,7 @@ struct Decoder {
     if (s < 0) return E_HUFFMAN;
     if (s > 15) return E_HUFFMAN;
     int diff = s ? extend(br.get(s), s) : 0;
-    c.pred += diff;
+    if (!add_pred(c, diff)) return E_CORRUPT;
     blk[0] = int16_t(c.pred);
     const HuffDecode& t = ac[c.ac_tbl];
     for (int k = 1; k < 64; ++k) {
@@ -519,6 +553,105 @@ struct Decoder {
       }
     }
     return OK;
+  }
+
+  // the DC predictor plus a difference; false where libjpeg errs
+  // (JERR_BAD_DCT_COEF: the sum leaves int)
+  static bool add_pred(Component& c, int diff) {
+    const int64_t v = int64_t(c.pred) + diff;
+    if (v > INT32_MAX || v < INT32_MIN) return false;
+    c.pred = int(v);
+    return true;
+  }
+
+  // jdphuff.c decode_mcu_DC_first, one block
+  int dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    int s = decode_huff(br, dc[c.dc_tbl]);
+    if (s < 0 || s > 15) return E_HUFFMAN;
+    int diff = s ? extend(br.get(s), s) : 0;
+    if (!add_pred(c, diff)) return E_CORRUPT;
+    blk[0] = int16_t(unsigned(c.pred) << al);
+    return OK;
+  }
+
+  // decode_mcu_AC_first: the band ss..se of one block, or one block of
+  // the current EOB run
+  int ac_first(BitReader& br, Component& c, int16_t* blk, int ss, int se,
+               int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return OK;
+    }
+    const HuffDecode& t = ac[c.ac_tbl];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_huff(br, t);
+      if (rs < 0) return E_HUFFMAN;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = int16_t(unsigned(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + br.get(r) - 1;
+        break;
+      }
+    }
+    return OK;
+  }
+
+  // decode_mcu_AC_refine: a correction bit for each nonzero coefficient
+  // of the band, newly nonzero ones placed past runs of zero ones
+  int ac_refine(BitReader& br, const Component& c, int16_t* blk, int ss,
+                int se, int al) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t& v) {
+      if (br.get(1) && (v & p1) == 0) v = int16_t(v + (v >= 0 ? p1 : m1));
+    };
+    const HuffDecode& t = ac[c.ac_tbl];
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode_huff(br, t);
+        if (rs < 0) return E_HUFFMAN;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.get(r);
+          break;
+        }
+        do {
+          int16_t& v = blk[kNatural[k]];
+          if (v != 0) correct(v);
+          else if (--r < 0) break;
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& v = blk[kNatural[k]];
+        if (v != 0) correct(v);
+      }
+      --eobrun;
+    }
+    return OK;
+  }
+
+  // jdcoefct.c smoothing_ok, after the last scan (SAVED_COEFS 10)
+  bool would_smooth() const {
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      if (!c.q_latched) return false;
+      for (int k = 0; k < 10; ++k)
+        if (c.q[kNatural[k]] == 0) return false;
+      if (coef_bits[i][0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= coef_bits[i][k] != 0;
+    }
+    return useful;
   }
 
   void restart(BitReader& br) {
@@ -542,11 +675,40 @@ struct Decoder {
     }
   }
 
+  // one block of the current scan: sequential, or the progressive kind
+  enum Kind { SEQUENTIAL, DC_FIRST, DC_REFINE, AC_FIRST, AC_REFINE };
+  int block(Kind kind, BitReader& br, Component& c, int16_t* blk, int ss,
+            int se, int al) {
+    switch (kind) {
+      case SEQUENTIAL: return decode_block(br, c, blk);
+      case DC_FIRST: return dc_first(br, c, blk, al);
+      case DC_REFINE:
+        if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+        return OK;
+      case AC_FIRST: return ac_first(br, c, blk, ss, se, al);
+      default: return ac_refine(br, c, blk, ss, se, al);
+    }
+  }
+
   int parse_sos(const uint8_t* s, int len) {
     if (!have_frame) return E_NO_FRAME;
     if (len < 1) return E_CORRUPT;
     int ns = s[0];
     if (ns < 1 || ns > ncomp || len < 4 + 2 * ns) return E_CORRUPT;
+    const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
+    const int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    Kind kind = SEQUENTIAL;
+    if (progressive) {
+      // jdphuff.c start_pass_phuff_decoder's JERR_BAD_PROGRESSION
+      if (ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1))
+        return E_CORRUPT;
+      if ((ah != 0 && al != ah - 1) || al > 13) return E_CORRUPT;
+      kind = ss == 0 ? (ah ? DC_REFINE : DC_FIRST)
+                     : (ah ? AC_REFINE : AC_FIRST);
+    }
+    // the Huffman tables this kind of scan reads
+    const bool need_dc = kind == SEQUENTIAL || kind == DC_FIRST;
+    const bool need_ac = kind == SEQUENTIAL || kind >= AC_FIRST;
     Component* sc[3];
     for (int i = 0; i < ns; ++i) {
       int id = s[1 + 2 * i];
@@ -557,7 +719,8 @@ struct Decoder {
       sc[i]->dc_tbl = s[2 + 2 * i] >> 4;
       sc[i]->ac_tbl = s[2 + 2 * i] & 15;
       if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3) return E_TABLES;
-      if (!dc[sc[i]->dc_tbl].defined || !ac[sc[i]->ac_tbl].defined)
+      if ((need_dc && !dc[sc[i]->dc_tbl].defined) ||
+          (need_ac && !ac[sc[i]->ac_tbl].defined))
         return E_TABLES;
       if (!sc[i]->q_latched) {
         if (!qt_defined[sc[i]->tq]) return E_TABLES;
@@ -565,9 +728,10 @@ struct Decoder {
         sc[i]->q_latched = true;
       }
       sc[i]->pred = 0;
+      if (progressive)
+        for (int k = ss; k <= se; ++k) coef_bits[sc[i] - comp][k] = al;
     }
-    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah_al = s[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ah_al != 0) return E_PROGRESSIVE;
+    eobrun = 0;
 
     BitReader br;
     br.p = p;
@@ -586,15 +750,21 @@ struct Decoder {
         if (togo == 0) {
           restart(br);
           for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+          eobrun = 0;
+          if (!br.marker) br.starved = false;
           togo = restart_interval;
         }
         --togo;
       }
+      // jdhuff.c / jdphuff.c: once the data has run out, the rest of the
+      // segment is left as it is (a DC refinement reading zero bits changes
+      // nothing)
+      if (br.starved && kind != DC_REFINE) continue;
       long mx = m % across, my = m / across;
       if (ns == 1) {
         Component& c = *sc[0];
         int16_t* blk = &c.coef[(size_t(my) * c.bw + mx) * 64];
-        int e = decode_block(br, c, blk);
+        int e = block(kind, br, c, blk, ss, se, al);
         if (e) return e;
         continue;
       }
@@ -603,7 +773,8 @@ struct Decoder {
         for (int y = 0; y < c.v; ++y)
           for (int x = 0; x < c.h; ++x) {
             size_t bx = size_t(mx) * c.h + x, by = size_t(my) * c.v + y;
-            int e = decode_block(br, c, &c.coef[(by * c.bw + bx) * 64]);
+            int e = block(kind, br, c, &c.coef[(by * c.bw + bx) * 64], ss,
+                          se, al);
             if (e) return e;
           }
       }
@@ -623,6 +794,7 @@ struct Decoder {
     p += 2;
     for (;;) {
       int m = next_marker();
+      if (m == 0xD9) saw_eoi = true;
       if (m == 0 || m == 0xD9) break;            // end of buffer / EOI
       if (m >= 0xD0 && m <= 0xD7) continue;      // stray RSTn
       if (m == 0x01) continue;                   // TEM
@@ -632,14 +804,13 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
-          if ((e = parse_sof(s, len))) return e;
+        case 0xC2:
+          if ((e = parse_sof(s, len, m == 0xC2))) return e;
           if (header_only) return OK;
           break;
-        case 0xC2:
-        case 0xC6:
-          return E_PROGRESSIVE;
         case 0xC3:
         case 0xC5:
+        case 0xC6:
         case 0xC7:
           return E_LOSSLESS;
         case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
@@ -677,6 +848,8 @@ struct Decoder {
     }
     if (!have_frame) return E_NO_FRAME;
     if (!header_only && scans == 0) return E_CORRUPT;
+    if (!header_only && !saw_eoi) return E_TRUNCATED;
+    if (!header_only && progressive && would_smooth()) return E_PARTIAL;
     return OK;
   }
 

@@ -5,14 +5,16 @@ without OpenCV.
 IMREAD_COLOR)` (and `imread` what it gets from `cv2.imread`), with the
 channels in RGB order, pixel for pixel:
 
-- JPEG: baseline and extended sequential Huffman, 8-bit, grey or three
-  components, any integral sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1),
-  restart markers. The C++ in `csrc/codec.cpp` (built at first use, called
-  through ctypes, which releases the GIL) repeats libjpeg-turbo's integer
-  IDCT, its "fancy" chroma upsampling and its YCbCr tables; the EXIF
-  orientation is applied as OpenCV applies it. Progressive,
-  arithmetic-coded, lossless and 12-bit bodies raise a `ValueError` that
-  names what is not supported.
+- JPEG: baseline, extended sequential and progressive Huffman, 8-bit,
+  grey or three components, any integral sampling (4:4:4, 4:2:2, 4:2:0,
+  4:4:0, 4:1:1), restart markers. The C++ in `csrc/codec.cpp` (built at
+  first use, called through ctypes, which releases the GIL) repeats
+  libjpeg-turbo's progressive scans, its integer IDCT, its "fancy" chroma
+  upsampling and its YCbCr tables; the EXIF orientation is applied as
+  OpenCV applies it. Arithmetic-coded, lossless, hierarchical and 12-bit
+  bodies raise a `ValueError` that names what is not supported, as does a
+  progressive body whose scans leave one of the first AC coefficients
+  unrefined (libjpeg-turbo would smooth it; see `csrc/codec.cpp`).
 - PNG: every colour type and bit depth, all five filters, Adam7.
   IMREAD_COLOR's rules: alpha dropped, 16-bit samples cut to their high
   byte, grey replicated, palette expanded, 1/2/4-bit grey scaled to 8
@@ -36,7 +38,6 @@ import numpy as np
 _ERRORS = {
     1: 'not a JPEG body',
     2: 'corrupt JPEG body',
-    3: 'progressive JPEG is not supported',
     4: 'arithmetic-coded JPEG is not supported',
     5: 'lossless or hierarchical JPEG is not supported',
     6: 'JPEG sample precision other than 8 bits (12-bit JPEG) is not '
@@ -50,6 +51,9 @@ _ERRORS = {
     13: 'bad or missing JPEG table',
     14: 'bad PNG filter type',
     15: 'out of memory',
+    16: 'progressive JPEG whose first AC coefficients are not fully '
+        'refined (libjpeg would smooth its blocks; not supported)',
+    17: 'truncated JPEG body (no end-of-image marker)',
 }
 MAX_PIXELS = 1 << 28       # csrc/codec.cpp's kMaxPixels
 _E_BUFFER = 11

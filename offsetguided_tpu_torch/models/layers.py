@@ -13,12 +13,15 @@ stock layer. For inference, `fold_batchnorm` folds each eval-mode BatchNorm
 into the convolution before it (w' = w * gamma/sqrt(var+eps), b' = beta -
 mean * that, computed in fp32), as the JAX eval path does; the model can
 then run in bf16 with the BN affine riding each convolution's accumulator.
+`sync_batchnorm` makes the train-mode statistics those of a data-parallel
+group's global batch.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -29,15 +32,34 @@ class _TrainNorm(torch.autograd.Function):
     its input (the convolution's output, bf16 under autocast) and the
     per-channel statistics; the backward recomputes the normalized input.
     The gradient of the fast variance E[x^2] - E[x]^2 is that of the
-    two-pass variance, so the backward is the standard one."""
+    two-pass variance, so the backward is the standard one.
+
+    With a process `group` the statistics are those of the global batch,
+    as under the JAX trainer's jit over a batch sharded on `data`: the
+    forward all-reduces the stacked [sum x, sum x^2, n] once, the backward
+    [sum g, sum g * xhat] once, both in the statistics' dtype. `dx` is then
+    the global batch's, and `dw` / `db` are this rank's shares (the
+    gradient reduction sums them)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group=None):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        if group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            n = x.numel() // x.shape[1]
+        else:
+            n_local = xf.numel() // xf.shape[1]
+            stats = torch.stack([xf.sum(dim=(0, 2, 3)),
+                                 (xf * xf).sum(dim=(0, 2, 3)),
+                                 xf.new_full((xf.shape[1],), n_local)])
+            dist.all_reduce(stats, group=group)
+            n = stats[2]
+            mean = stats[0] / n
+            var = stats[1] / n - mean * mean
         rstd = torch.rsqrt(var + eps)
         ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.n, ctx.group = n, group
         y = (xf - mean[:, None, None]) * rstd[:, None, None]
         y = y * weight[:, None, None] + bias[:, None, None]
         ctx.mark_non_differentiable(mean, var)
@@ -48,12 +70,17 @@ class _TrainNorm(torch.autograd.Function):
         x, weight, mean, rstd = ctx.saved_tensors
         g = dy.to(mean.dtype)
         xhat = (x.to(mean.dtype) - mean[:, None, None]) * rstd[:, None, None]
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         db = g.sum(dim=(0, 2, 3))
         dw = (g * xhat).sum(dim=(0, 2, 3))
-        dx = (g - (db / n)[:, None, None] - xhat * (dw / n)[:, None, None])
+        sdb, sdw = db, dw
+        if ctx.group is not None:
+            sums = torch.stack([db, dw])
+            dist.all_reduce(sums, group=ctx.group)
+            sdb, sdw = sums[0], sums[1]
+        dx = (g - (sdb / n)[:, None, None] - xhat * (sdw / n)[:, None, None])
         dx = dx * (weight * rstd)[:, None, None]
-        return dx.to(x.dtype), dw, db, None
+        return dx.to(x.dtype), dw, db, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -68,15 +95,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     var (the stock layer stores the unbiased one). `momentum` keeps torch's
     convention: the JAX momentum 0.9 is 0.1 here (`PoseNet` sets it from
     `ModelConfig.bn_momentum`); None is the cumulative average. Eval mode
-    is the stock layer, in fp32 for a lower-precision input."""
+    is the stock layer, in fp32 for a lower-precision input.
+
+    `sync_group` (set by `sync_batchnorm`) takes the train-mode statistics
+    over the process group's global batch (`_TrainNorm`); the running
+    statistics then move equally on every rank. None (the default) is the
+    one-process layer."""
 
     update_statistics = True
+    sync_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x.float() if x.dtype != self.weight.dtype
                                    else x)
-        y, mean, var = _TrainNorm.apply(x, self.weight, self.bias, self.eps)
+        y, mean, var = _TrainNorm.apply(x, self.weight, self.bias, self.eps,
+                                        self.sync_group)
         if not self.update_statistics:
             return y
         with torch.no_grad():
@@ -86,6 +120,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(1.0 - f).add_(mean, alpha=f)
             self.running_var.mul_(1.0 - f).add_(var, alpha=f)
         return y
+
+
+def sync_batchnorm(module: nn.Module, group) -> nn.Module:
+    """Every `BatchNorm2d` of `module` takes its train-mode statistics over
+    `group` (None: back to the one-process layer). Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_group = group
+    return module
 
 
 @contextlib.contextmanager

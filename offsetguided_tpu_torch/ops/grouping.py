@@ -157,11 +157,19 @@ def group_skeletons(packed_limbs: torch.Tensor, skeleton: Sequence,
 
 
 def _delete_sort(subset, used, cfg: DecoderConfig):
-    """Score, filter, stable sort by score and compact to max_poses."""
+    """Score, filter, stable sort by score and compact to max_poses.
+
+    A row's score sums its masked values serially over j, the order of the
+    grouping kernel's final pass (`csrc/grouping.cu`), so the two scores
+    are bit-equal and a cut at max_poses keeps the same one of two tied
+    rows on both sides."""
     vals = subset[..., cfg.sort_dim]                           # (N, M, J)
     pos = (vals > 0) & used[:, :, None]
     npos = pos.sum(dim=2)
-    total = (vals * pos.float()).sum(dim=2)
+    masked = vals * pos.float()
+    total = torch.zeros_like(masked[..., 0])
+    for j in range(masked.shape[2]):
+        total = total + masked[..., j]
     score = torch.where(npos > 0, total / npos.clamp(min=1).float(),
                         torch.zeros_like(total))
     keep = used & (score >= cfg.person_thre)

@@ -1,6 +1,7 @@
 """Training step: loss, gradients, the explosion guard, optimizer, schedules.
 
-Port of the JAX package's `parallel/train_step.py` on one device. The
+Port of the JAX package's `parallel/train_step.py`, on one device or as
+one rank of a data-parallel group (`TrainStep(..., group=...)`). The
 model's train-mode forward carries the compute policy (bf16 autocast
 backbone, fp32 parameters and BatchNorm statistics) and updates the
 BatchNorm running statistics; the optimizer updates match optax's:
@@ -18,10 +19,12 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config.defaults import LossConfig, TrainConfig
+from ..models.layers import sync_batchnorm
 from ..ops.image import normalize_images
-from ..ops.losses import compute_losses
+from ..ops.losses import compute_losses, global_losses
 
 
 class AdamLowPrecision(torch.optim.Optimizer):
@@ -90,6 +93,36 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
                                            max_norm / norm))
 
 
+def _sum_gradients(group, bucket):
+    """DDP communication hook: the ranks' gradients SUMMED (DDP's own hook
+    averages them)."""
+    fut = dist.all_reduce(bucket.buffer(), group=group,
+                          async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
+
+
+def data_parallel(model, loss_cfg: LossConfig, group):
+    """`model` wrapped in DistributedDataParallel for `TrainStep`: its
+    BatchNorms synchronized over `group`, the gradients summed (a comm
+    hook), no buffer broadcast (the synchronized running statistics are
+    equal on every rank already), and the unused-parameter search only
+    where a head's parameters take no gradient: a spread tower without the
+    Laplace offset loss (the fused 1x1 heads give the spread rows a zero
+    gradient through their one matmul)."""
+    from torch.nn.parallel import DistributedDataParallel
+    sync_batchnorm(model, group)
+    dev = next(model.parameters()).device
+    heads = model.cfg.heads
+    unused = (heads.tower and heads.include_spread
+              and loss_cfg.offset_loss != 'offset_laplace')
+    ddp = DistributedDataParallel(
+        model, device_ids=[dev] if dev.type == 'cuda' else None,
+        broadcast_buffers=False, find_unused_parameters=unused,
+        process_group=group)
+    ddp.register_comm_hook(group, _sum_gradients)
+    return ddp
+
+
 class TrainStep:
     """`step(images, targets, mask) -> metrics`: forward in train mode on
     uint8 images (normalized here), losses, backward, the explosion guard,
@@ -100,31 +133,47 @@ class TrainStep:
     set to 0.)
     With `max_grad_norm`, gradients of a larger global norm are scaled to
     it first (optax's clip_by_global_norm). Metrics stay on the device:
-    reading them waits for the step."""
+    reading them waits for the step.
+
+    With a process `group` (data parallel, each rank given its slice of
+    the global batch) the step is the JAX step on the sharded batch: the
+    model runs under `data_parallel` (global BatchNorm statistics), each
+    rank's loss is its share of the global loss (`compute_losses` with the
+    global normalizers), so the global gradient is the SUM of the ranks'
+    gradients, which DDP's comm hook all-reduces during the backward; the
+    clip then sees the global gradient, and the explosion guard and the
+    metrics read the global losses (`global_losses`), so every rank skips
+    the same steps and the weights stay equal. `self.model` stays the bare
+    module (checkpoints, evaluation)."""
 
     def __init__(self, model, optimizer: torch.optim.Optimizer,
                  loss_cfg: LossConfig,
                  lr_schedule: Optional[Callable[[int], float]] = None,
                  explosion_guard: float = 1e8,
-                 max_grad_norm: Optional[float] = None):
+                 max_grad_norm: Optional[float] = None, group=None):
         self.model = model
         self.optimizer = optimizer
         self.loss_cfg = loss_cfg
         self.lr_schedule = lr_schedule
         self.explosion_guard = explosion_guard
         self.max_grad_norm = max_grad_norm
+        self.group = group
+        self.net = (model if group is None
+                    else data_parallel(model, loss_cfg, group))
         self.step = 0
 
     def __call__(self, images, targets, mask) -> Dict[str, torch.Tensor]:
         self.model.train()
         if self.lr_schedule is not None:
-            for group in self.optimizer.param_groups:
-                group['lr'] = self.lr_schedule(self.step)
+            for pg in self.optimizer.param_groups:
+                pg['lr'] = self.lr_schedule(self.step)
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(normalize_images(images))
-        losses = compute_losses(out, targets, mask, self.loss_cfg)
+        out = self.net(normalize_images(images))
+        losses = compute_losses(out, targets, mask, self.loss_cfg,
+                                self.group)
+        losses['total'].backward()
+        losses = global_losses(losses, self.group)
         total = losses['total']
-        total.backward()
         ok = torch.isfinite(total) & (total < self.explosion_guard)
         grads = [p.grad for g in self.optimizer.param_groups
                  for p in g['params'] if p.grad is not None]
@@ -134,14 +183,16 @@ class TrainStep:
             clip_by_global_norm_(grads, self.max_grad_norm)
         self.optimizer.step()
         self.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = dict(losses)
         metrics['skipped'] = (~ok).to(torch.float32)
         return metrics
 
 
-def make_eval_step(model, loss_cfg: LossConfig):
+def make_eval_step(model, loss_cfg: LossConfig, group=None):
     """Validation losses of a batch with the running statistics, in the
-    train step's compute dtype."""
+    train step's compute dtype; with a process `group`, each rank gives
+    its slice and every rank gets the global batch's losses (the JAX
+    `eval_step` on the sharded batch)."""
 
     @torch.no_grad()
     def eval_step(images, targets, mask) -> Dict[str, torch.Tensor]:
@@ -149,7 +200,8 @@ def make_eval_step(model, loss_cfg: LossConfig):
         x = normalize_images(images)
         with model.autocast(x.device.type):
             out = model(x)
-        return compute_losses(out, targets, mask, loss_cfg)
+        return global_losses(compute_losses(out, targets, mask, loss_cfg,
+                                            group), group)
 
     return eval_step
 

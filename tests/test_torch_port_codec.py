@@ -140,12 +140,12 @@ def _sof_edit(body: bytes, marker: int = None, precision: int = None):
 
 def test_unsupported_jpeg_raises():
     img = image(40, 56, 5, 2)
-    ok, prog = cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match='progressive'):
-        codec.decode(prog.tobytes())
     base = cv_jpeg(img)
-    with pytest.raises(ValueError, match='arithmetic'):
-        codec.decode(_sof_edit(base, marker=0xC9))
+    for arithmetic in (0xC9, 0xCA):           # sequential, progressive
+        with pytest.raises(ValueError, match='arithmetic'):
+            codec.decode(_sof_edit(base, marker=arithmetic))
+    with pytest.raises(ValueError, match='hierarchical'):
+        codec.decode(_sof_edit(base, marker=0xC6))
     with pytest.raises(ValueError, match='lossless'):
         codec.decode(_sof_edit(base, marker=0xC3))
     with pytest.raises(ValueError, match='12-bit'):

@@ -787,3 +787,59 @@ def test_export_with_decode_on_the_card(cuda, tmp_path):
         (before[0] + 1, before[1] + 1)
     for a, b in zip(got, eager):
         assert torch.equal(a, b)
+
+
+# --- data parallel on the card, and the progressive JPEG bodies ---------- #
+
+def tiny_step_kw():
+    """The one-step check's tiny model, weights and batch
+    (`chip_smoke.tiny_train_batch`, two images)."""
+    from chip_smoke import TINY_TRAIN, tiny_train_batch
+    from offsetguided_tpu_torch.config.defaults import ModelConfig
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.models.network import init_reference_
+    images, anns, mask = tiny_train_batch()
+    init = init_reference_(PoseNet(ModelConfig(**TINY_TRAIN)),
+                           torch.Generator().manual_seed(0))
+    return dict(model_kw=TINY_TRAIN, images=images, anns=anns, mask=mask,
+                state={k: v.numpy() for k, v in init.state_dict().items()})
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda, dtype):
+    """One SGD step (TF32 off) of the tiny model: two gloo ranks sharing
+    the card, one image each, against this process on the whole batch;
+    the ranks bit-equal, and within the one-step tolerances of the one
+    process."""
+    from offsetguided_tpu_torch.parallel import distributed, parity
+    kw = tiny_step_kw()
+    ranks = distributed.spawn(parity.run_cases, 2, [
+        ('step', 'train_step', dict(kw, dtype=dtype))], 'cuda', True, 2)
+    assert ranks[0]['step']['digest'] == ranks[1]['step']['digest']
+    e = parity.step_errors(kw['state'], parity.train_step(cuda, **kw,
+                                                          dtype=dtype),
+                           ranks[0]['step'])
+    assert one_step_ok(e), e
+
+
+def test_one_nccl_rank_matches_one_process(cuda):
+    """World size 1 over NCCL (DDP, the synchronized BatchNorm and the
+    global normalizers with one rank) against the one-process step, fp32,
+    TF32 off: within the one-step tolerances."""
+    from offsetguided_tpu_torch.parallel import distributed, parity
+    kw = tiny_step_kw()
+    ranks = distributed.spawn(parity.run_cases, 1, [
+        ('step', 'train_step', kw)], 'cuda', False, 2)
+    e = parity.step_errors(kw['state'], parity.train_step(cuda, **kw),
+                           ranks[0]['step'])
+    assert one_step_ok(e), e
+
+
+def test_progressive_bodies_decode_to_the_pinned_digests(cuda):
+    """The committed progressive JPEG bodies decode on the card's host to
+    the pixels cv2.imdecode gave on the CPU (`PROGRESSIVE_DIGESTS`)."""
+    from chip_smoke import PROGRESSIVE_DIGESTS, codec_digests, progressive_cases
+    from offsetguided_tpu_torch.data import codec
+    for name, body in progressive_cases():
+        assert codec_digests(body, codec.decode(body)) == \
+            PROGRESSIVE_DIGESTS[name][1:], name

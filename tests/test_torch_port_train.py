@@ -546,7 +546,7 @@ def test_cli_trains_one_step_on_the_tiled_warp(tiny_set, tmp_path,
 
 
 @pytest.mark.parametrize('flags', [
-    ['--device-aug', '--distributed'], ['--device-aug', '--freeze', 'hmp'],
+    ['--device-aug', '--freeze', 'hmp'],
     ['--device-aug', '--drop-layers', 'hmp']])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
