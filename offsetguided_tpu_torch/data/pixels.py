@@ -17,6 +17,19 @@ value (pinned by fuzzing against it, `tests/test_torch_port_host_aug.py`):
   border value. The float32 result is rounded half to even and saturated.
   (OpenCV 4's fixed-point remap, with coordinates rounded to 1/32 pixel,
   differs from this on about one value in ten.)
+- `resize_cubic_u8`: `cv2.resize(src, (w, h), interpolation=INTER_CUBIC)`,
+  which OpenCV 5.0 hands to Intel IPP for sources of at least 4 x 4. Each
+  axis maps output i to the source at (i + 0.5) * n_in / n_out - 0.5 in
+  double precision; the fraction t is rounded to float32 and then to a
+  multiple of 2^-23, and the four weights are the double cubic kernel
+  (A = -0.75) at t + 1, t, 1 - t and 2 - t, rounded to float32; taps
+  outside the source repeat its edge. The rows are resized first, into
+  float32: three channels by a chain of fused multiply-adds left to
+  right, one channel by the rounded products summed in pairs, (w0 v0 +
+  w1 v1) + (w2 v2 + w3 v3). The columns follow, fma(v0, w0, v1 w1) +
+  fma(v2, w2, v3 w3), and the result is rounded half to even and
+  saturated. (Below 4 pixels a side cv2 uses its own fixed-point resize,
+  which this differs from by at most one grey level.)
 - `rgb_to_gray_u8`: fixed point, (9798 R + 19235 G + 3735 B + 2^14) >> 15.
 - `rgb_to_hsv_u8` / `hsv_to_rgb_u8`: the uint8 conversions with hue in
   [0, 180): fixed-point division tables one way; the other, float32
@@ -24,10 +37,11 @@ value (pinned by fuzzing against it, `tests/test_torch_port_host_aug.py`):
   32-pixel vector blocks and rounded in its tail. Both hold over every one
   of their 2^24 and 180 * 2^16 inputs, in blocks and in tails.
 
-`warp_affine_u8_native` computes `warp_affine_u8` in C++ with the same
-operation order (`csrc/host_warp.cpp`, called through ctypes, which
-releases the GIL); the loader uses it, and the numpy version is the
-definition the tests hold it to.
+`warp_affine_u8_native` and `resize_cubic_u8_native` compute
+`warp_affine_u8` and `resize_cubic_u8` in C++ with the same operation
+order (`csrc/host_warp.cpp`, called through ctypes, which releases the
+GIL); the loader and the evaluation's rescale use them, and the numpy
+versions are the definitions the tests hold them to.
 """
 from __future__ import annotations
 
@@ -147,6 +161,71 @@ def warp_affine_u8_native(src: np.ndarray, m, out_w: int, out_h: int,
                              out_w) != 0:
         raise RuntimeError('og_warp_affine_u8 failed')
     return out[..., 0] if src.ndim == 2 else out
+
+
+def _keys(t: np.ndarray) -> np.ndarray:
+    """The cubic kernel (A = -0.75) at 0 <= t <= 2, in double precision."""
+    a = -0.75
+    return np.where(t <= 1, ((a + 2) * t - (a + 3)) * t * t + 1,
+                    ((a * t - 5 * a) * t + 8 * a) * t - 4 * a)
+
+
+def resize_taps(n_in: int, n_out: int):
+    """One axis of `resize_cubic_u8`: the four source taps of each output,
+    clamped to the source, (4, n_out), and their float32 weights."""
+    pos = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    lo = np.floor(pos)
+    t = (pos - lo).astype(f32).astype(np.float64)
+    t = np.round(t * 2.0 ** 23) * 2.0 ** -23
+    w = np.stack([_keys(t + 1), _keys(t), _keys(1 - t), _keys(2 - t)])
+    taps = lo.astype(np.int64)[None] + np.arange(-1, 3)[:, None]
+    return np.clip(taps, 0, n_in - 1), w.astype(f32)
+
+
+def _resize_channels(src: np.ndarray) -> np.ndarray:
+    s = src[:, :, None] if src.ndim == 2 else src
+    if s.shape[2] not in (1, 3) or min(s.shape[:2]) < 1:
+        raise ValueError(f'resize_cubic_u8 takes (H, W), (H, W, 1) or '
+                         f'(H, W, 3) uint8; got {src.shape}')
+    return s
+
+
+def resize_cubic_u8(src: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """cv2.resize(src, (out_w, out_h), interpolation=INTER_CUBIC) for
+    uint8 (H, W), (H, W, 1) or (H, W, 3) `src` of at least 4 x 4."""
+    s = _resize_channels(src)
+    h, w, c = s.shape
+    tx, wx = resize_taps(w, out_w)
+    ty, wy = resize_taps(h, out_h)
+    x = s.astype(f32)
+    v = [x[:, tx[j]] for j in range(4)]
+    k = [wx[j][None, :, None] for j in range(4)]
+    if c == 3:
+        rows = v[0] * k[0]
+        for j in range(1, 4):
+            rows = fma32(v[j], k[j], rows)
+    else:
+        rows = (v[0] * k[0] + v[1] * k[1]) + (v[2] * k[2] + v[3] * k[3])
+    r = [rows[ty[i]] for i in range(4)]
+    k = [wy[i][:, None, None] for i in range(4)]
+    acc = fma32(r[0], k[0], r[1] * k[1]) + fma32(r[2], k[2], r[3] * k[3])
+    out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    return out.reshape(out_h, out_w, *src.shape[2:])
+
+
+def resize_cubic_u8_native(src: np.ndarray, out_w: int,
+                           out_h: int) -> np.ndarray:
+    """`resize_cubic_u8` computed by its C++ twin (`csrc/host_warp.cpp`,
+    built at first use; a failed build raises)."""
+    from ..ops.cuda import _build
+    lib = _build.library('host_warp')
+    s = np.ascontiguousarray(_resize_channels(src), dtype=np.uint8)
+    h, w, c = s.shape
+    out = np.empty((out_h, out_w, c), np.uint8)
+    if lib.og_resize_cubic_u8(s.ctypes.data, h, w, c, out.ctypes.data,
+                              out_h, out_w) != 0:
+        raise RuntimeError('og_resize_cubic_u8 failed')
+    return out.reshape(out_h, out_w, *src.shape[2:])
 
 
 def rgb_to_gray_u8(image: np.ndarray) -> np.ndarray:

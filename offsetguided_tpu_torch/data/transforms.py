@@ -13,9 +13,9 @@ OpenCV (`data/pixels.py`, identical value for value).
 Same coordinate conventions as the JAX package's `data/transforms.py`:
 rescaling uses `(target-1)/(orig-1)` scale factors, padding fills
 RGB(124,116,104), and `meta` records the forward mapping for the inverse.
-The resize is torch bicubic (half-pixel, A=-0.75, edge clamp) rounded and
-clamped to uint8 instead of `cv2.INTER_CUBIC`; the two differ by at most
-one grey level (measured in tests/test_torch_port_e2e.py).
+The resize gives the values of the JAX package's `cv2.resize(...,
+INTER_CUBIC)` without OpenCV (`data/pixels.py::resize_cubic_u8`, value for
+value for sources of at least 4 x 4 pixels).
 """
 from __future__ import annotations
 
@@ -194,15 +194,9 @@ def color_tint(image: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
 
 def resize_bicubic_u8(image: np.ndarray, target_w: int,
                       target_h: int) -> np.ndarray:
-    """(H, W, 3) uint8 -> (target_h, target_w, 3) uint8, torch bicubic.
-    (torch is imported here: the training loader's processes, which import
-    this module, need no torch.)"""
-    import torch
-    import torch.nn.functional as F
-    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)
-    y = F.interpolate(x[None].float(), size=(target_h, target_w),
-                      mode='bicubic', align_corners=False)[0]
-    return y.round().clamp(0, 255).to(torch.uint8).permute(1, 2, 0).numpy()
+    """(H, W, 3) uint8 -> (target_h, target_w, 3) uint8: cv2.resize's
+    INTER_CUBIC, computed in C++ (`pixels.resize_cubic_u8_native`)."""
+    return pixels.resize_cubic_u8_native(image, target_w, target_h)
 
 
 def _scale_to(image, anns, meta, target_w, target_h):

@@ -76,6 +76,8 @@ SIGNATURES = {
     'host_warp': {
         'og_warp_affine_u8': ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr,
                                c_ptr, c_int, c_int], c_int),
+        'og_resize_cubic_u8': ([c_ptr, c_int, c_int, c_int, c_ptr, c_int,
+                                c_int], c_int),
     },
     'codec': {
         'og_jpeg_info': ([c_ptr, ctypes.c_long, c_ptr], c_int),

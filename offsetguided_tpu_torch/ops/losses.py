@@ -63,12 +63,6 @@ def _margin_sum(elems, valid, margin, sqrt_re):
     return torch.where(keep, vals, torch.zeros_like(vals)).sum(), keep.sum()
 
 
-def _margin_normalized_sum(elems, valid, margin, sqrt_re):
-    """Keep elements >= margin, optional sqrt, sum / (1 + count)."""
-    total, count = _margin_sum(elems, valid, margin, sqrt_re)
-    return total / (1.0 + count.to(total.dtype))
-
-
 def heatmap_loss_fn(name: str, cfg: LossConfig):
     if name == 'l2':
         return _l2

@@ -1,8 +1,8 @@
 """The multi-process dry run: the port's counterpart of the JAX package's
 `__graft_entry__.dryrun_multichip` / `_dryrun_impl`.
 
-`dryrun_multichip(n)` spawns `n` gloo ranks (on the CPU, or all sharing
-one card with `device='cuda'`) and runs, on the dry run's narrow
+`dryrun_multichip(n)` spawns `n` gloo ranks (all sharing the card by
+default, or on the CPU with `device='cpu'`) and runs, on the dry run's narrow
 Hourglass-104 (two stacks, `dims=(32, 32, 64)`, `modules=(1, 1, 1)`,
 `cnv_dim=32`, 32 x 32 images, a global batch of `n`, one image a rank):
 
@@ -20,11 +20,13 @@ The JAX dry run also shards the wide convolutions over a `model` axis
 the port covers the `data` axis only.
 
     python -c "from offsetguided_tpu_torch.parallel.dryrun import \\
-        dryrun_multichip; dryrun_multichip(2)"
+        dryrun_multichip; dryrun_multichip(2)"          # on the card
+    python -c "from offsetguided_tpu_torch.parallel.dryrun import \\
+        dryrun_multichip; dryrun_multichip(2, device='cpu')"
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -32,12 +34,15 @@ HW = 32          # image side; the outputs are HW // 4
 J, L = 17, 19
 
 
-def dryrun_multichip(n_devices: int, device: str = 'cpu',
+def dryrun_multichip(n_devices: int, device: Optional[str] = None,
                      timeout: float = 600.0) -> List[Dict]:
-    """Run the dry run on `n_devices` spawned ranks; returns each rank's
-    record (`rank`, `loss`, `poses_shape`, `aug_shape`, `checksum`).
-    Raises if a rank fails an assertion."""
+    """Run the dry run on `n_devices` spawned ranks, on the device that
+    `resolve_device(device)` gives (the card unless `device='cpu'`);
+    returns each rank's record (`rank`, `loss`, `poses_shape`,
+    `aug_shape`, `checksum`). Raises if a rank fails an assertion."""
+    from ..device import resolve_device
     from . import distributed
+    resolve_device(device)          # no card: raise here, before spawning
     out = distributed.spawn(_dryrun_rank, n_devices, device, timeout=timeout)
     sums = {r['checksum'] for r in out}
     if len(sums) != 1:

@@ -111,6 +111,8 @@ def ranks():
                                        mask=mask, loss_kw={})),
              ('step', 'train_step', step),
              ('guard', 'train_step', dict(step, spike_rank=1, spike=1e10)),
+             ('remat', 'train_step', dict(step, model_kw=dict(TINY1,
+                                                              remat=True))),
              ('tower', 'train_step', dict(step, model_kw=tower, steps=2,
                                           state=init_state(tower)))]
     return distributed.spawn(parity.run_cases, WORLD, cases, 'cpu', True, 1)
@@ -250,16 +252,15 @@ def test_two_rank_step_matches_jax_mesh_step(ranks, jax_mesh_step):
                                    err_msg=k)
 
 
-def test_two_rank_step_matches_one_rank_step(ranks):
-    """The same step in one process on the whole batch (no group): the
-    same losses, gradients and BN statistics at the one-step
-    tolerances."""
+def assert_matches_one_rank_step(got):
+    """A 2-rank `train_step` result against the same step in one process
+    on the whole batch (no group, no remat): the same losses, gradients
+    and BN statistics at the one-step tolerances."""
     images, anns, mask, variables, state = step_inputs()
     _, cfg = configs(1)
     _, tt = targets_both(anns)
     net, step = port_step(variables, cfg)
     m = step(torch.from_numpy(images), tt, torch.from_numpy(mask))
-    got = ranks[0]['step']
     for k, v in m.items():
         np.testing.assert_allclose(got['metrics'][k], float(v), rtol=1e-4,
                                    err_msg=k)
@@ -271,6 +272,25 @@ def test_two_rank_step_matches_one_rank_step(ranks):
         if 'running' in k:
             np.testing.assert_allclose(got['state'][k], one[k].numpy(),
                                        rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_two_rank_step_matches_one_rank_step(ranks):
+    """The same step in one process on the whole batch (no group): the
+    same losses, gradients and BN statistics at the one-step
+    tolerances."""
+    assert_matches_one_rank_step(ranks[0]['step'])
+
+
+def test_two_rank_remat_step_matches_one_rank_step(ranks):
+    """The 2-rank step with `remat`: the checkpointed blocks' recompute
+    in the backward issues the synchronized BatchNorm's forward
+    all-reduce again (statistics frozen) between DDP's gradient
+    all-reduces. The same losses, gradients and BN statistics (updated
+    once) as the one-process step without remat, and the ranks end
+    bit-equal."""
+    assert ranks[0]['remat']['digest'] == ranks[1]['remat']['digest']
+    assert ranks[0]['remat']['metrics']['skipped'] == 0.0
+    assert_matches_one_rank_step(ranks[1]['remat'])
 
 
 def test_explosion_guard_skips_on_every_rank(ranks):

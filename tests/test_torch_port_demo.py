@@ -2,8 +2,7 @@
 same tiny weights: seeded JAX variables written by the JAX package's
 `save_torch_checkpoint` reach both demos as `--torch-checkpoint`, with
 `ModelConfig` narrowed in each package (as tests/test_integration.py
-does), on two 96 x 128 PNGs (long edge 128: no resize, whose two versions
-differ by a grey level) with flip test, heatmaps, limb offsets, all limbs
+does), on two 96 x 128 PNGs (long edge 128: no resize) with flip test, heatmaps, limb offsets, all limbs
 and an annotation file. Each image's inverse-transformed poses agree
 within 1e-3 px (fp32 forward and decode on the CPU, summed in other
 orders), the losses within 1e-4 relative, and the same PNG names are

@@ -10,7 +10,7 @@ from offsetguided_tpu_torch.parallel import dryrun
 
 @pytest.fixture(scope='module')
 def ranks():
-    return dryrun.dryrun_multichip(2)
+    return dryrun.dryrun_multichip(2, device='cpu')
 
 
 def test_dryrun_multichip_two_ranks(ranks):

@@ -64,10 +64,9 @@ def test_infer_records_match_jax(flip_test):
 
 
 def test_preprocess_matches_jax():
-    """Same geometry and meta as the JAX preprocessing. The torch bicubic
-    resize differs from cv2.INTER_CUBIC by at most one grey level, on a
-    smooth image and on noise, up- and downscaling (measured: max 1, mean
-    under 3e-4 levels at 64x44, 200x138 and 640x443 from 130x90)."""
+    """Same geometry, meta and pixels as the JAX preprocessing. The
+    port's resize gives cv2.INTER_CUBIC's values, on a smooth image and
+    on noise, up- and downscaling (64x44 and 640x443 from 130x90)."""
     yy, xx = np.mgrid[0:90, 0:130]
     smooth = np.stack([xx * 1.9, yy * 2.7, (xx + yy) * 1.1], -1)
     smooth = np.clip(smooth, 0, 255).astype(np.uint8)
@@ -79,13 +78,12 @@ def test_preprocess_matches_jax():
     assert img.shape == jimg.shape == (64, 64, 3) and img.dtype == np.uint8
     for key in ('offset', 'scale', 'valid_area', 'width_height'):
         np.testing.assert_allclose(meta[key], jmeta[key], err_msg=key)
-    gap = np.abs(img.astype(int) - jimg.astype(int)).max()
-    assert gap <= 1, gap
+    np.testing.assert_array_equal(img, jimg)
     noise = np.random.RandomState(0).randint(0, 256, (90, 130, 3), np.uint8)
     for tw, th in ((64, 44), (640, 443)):
-        ours = T.resize_bicubic_u8(noise, tw, th).astype(int)
+        ours = T.resize_bicubic_u8(noise, tw, th)
         ref = cv2.resize(noise, (tw, th), interpolation=cv2.INTER_CUBIC)
-        assert np.abs(ours - ref.astype(int)).max() <= 1
+        np.testing.assert_array_equal(ours, ref)
 
 
 def test_batcher_answers_requests_on_cpu():

@@ -271,7 +271,7 @@ def test_poses_to_json_equals_jax():
 
 def _parity_png():
     """A 96 x 128 image: the long edge is already 128, so both packages'
-    preprocessing only pads (their resizes differ by a grey level)."""
+    preprocessing only pads."""
     rng = np.random.RandomState(5)
     return codec.encode_png((rng.rand(96, 128, 3) * 255).astype(np.uint8))
 
