@@ -1583,20 +1583,28 @@ def phase_train(dev, root, skeleton, records):
             f's, feed {h["feed_ms"]:.2f} ms, forward+backward+optimizer '
             f'{h["step_ms"]:.2f} ms (CUDA events)')
     train_summary('train', hist, wall, peak, r['checkpoint'])
-    phase_train_profile(dev, img_dir, ann)
+    gaps = sorted(b['t'] - a['t'] for a, b in zip(hist[1:], hist[2:]))
+    phase_train_profile(dev, img_dir, ann, gaps[len(gaps) // 2] * 1e3)
     return {'train_handoff': phase_train_handoff(
         dev, r['checkpoint'], r['model_cfg'], skeleton, records)}
 
 
-def phase_train_profile(dev, img_dir, ann):
+H2D_RUNS = 4                 # the feed's H2D per route, in turns; 1 warm-up
+
+
+def phase_train_profile(dev, img_dir, ann, step_ms):
     """Where a training step's time goes, at the [train] configuration:
     the host loader's batch (host clock), the feed split by CUDA events
     (H2D from pinned memory, the warp + photometric + annotation pass on
     the tiled warp, the trainer's default, and on the patch warp, GT
-    encoding, mask downscaling; mean of 3 batches after one warm-up), and
-    one train step under torch.profiler by kernel category, with the
-    device's idle share, for Hourglass-104 and for the 4-stage net (2
-    stacks, the JAX CLI's default)."""
+    encoding, mask downscaling; mean of 3 batches after one warm-up), the
+    H2D of each route's batch as the trainer puts it (`cli.train.
+    device_batch`: each array pinned, then copied without blocking) in
+    turns, device-aug and host route, against `step_ms` (the [train]
+    run's median step, host clock), and one train step under
+    torch.profiler by kernel category, with the device's idle share, for
+    Hourglass-104 and for the 4-stage net (2 stacks, the JAX CLI's
+    default)."""
     import torch
     from offsetguided_tpu_torch.config.defaults import (
         AugmentationConfig, EncoderConfig, ModelConfig, SkeletonConfig)
@@ -1608,15 +1616,15 @@ def phase_train_profile(dev, img_dir, ann):
 
     sk = SkeletonConfig()
     enc = EncoderConfig()
-    ds = pipeline.CocoKeypoints(
-        img_dir, ann, aug=AugmentationConfig(square_length=TRAIN_SIZE),
-        square_length=TRAIN_SIZE, device_aug=True)
+    aug = AugmentationConfig(square_length=TRAIN_SIZE)
+    ds = pipeline.CocoKeypoints(img_dir, ann, aug=aug,
+                                square_length=TRAIN_SIZE, device_aug=True)
     t0 = time.perf_counter()
     batches = [pipeline._make_batch(ds, range(i * TRAIN_BATCH,
                                               (i + 1) * TRAIN_BATCH),
                                     pipeline._batch_rng(0, 0, i), 0)
-               for i in range(4)]
-    loader_ms = (time.perf_counter() - t0) / 4 * 1e3
+               for i in range(H2D_RUNS)]
+    loader_ms = (time.perf_counter() - t0) / H2D_RUNS * 1e3
     out_hw = TRAIN_SIZE // enc.stride
     parts = {'h2d': 0.0, 'augment (tiled warp)': 0.0,
              'augment (patch warp)': 0.0, 'encode': 0.0, 'downscale': 0.0}
@@ -1642,10 +1650,43 @@ def phase_train_profile(dev, img_dir, ann):
         torch.cuda.synchronize()
         if i:
             for k, (a, c) in zip(parts, zip(ev, ev[1:])):
-                parts[k] += a.elapsed_time(c) / 3
+                parts[k] += a.elapsed_time(c) / (H2D_RUNS - 1)
     log(f'[train profile] host loader {loader_ms:.1f} ms a batch of '
         f'{TRAIN_BATCH} (one thread, host clock); feed by CUDA events: '
         + ', '.join(f'{k} {v:.2f} ms' for k, v in parts.items()))
+
+    host_ds = pipeline.CocoKeypoints(img_dir, ann, aug=aug,
+                                     square_length=TRAIN_SIZE)
+    routes = {'device-aug': (ds, batches), 'host': (host_ds, [
+        {k: v for k, v in pipeline._make_batch(
+            host_ds, range(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH),
+            pipeline._batch_rng(0, 0, i), 0).items()
+         if k in ('image', 'anns', 'mask_miss')} for i in range(H2D_RUNS)])}
+    h2d = {r: [] for r in routes}
+    for i in range(H2D_RUNS):
+        for route, (d, bs) in routes.items():
+            keys = d.sample_spec() if route == 'device-aug' else bs[i]
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            on_dev = [torch.from_numpy(bs[i][k]).pin_memory().to(
+                dev, non_blocking=True) for k in keys]
+            ev[1].record()
+            torch.cuda.synchronize()
+            if i:
+                h2d[route].append(ev[0].elapsed_time(ev[1]))
+            del on_dev
+    for route, (d, bs) in routes.items():
+        keys = d.sample_spec() if route == 'device-aug' else bs[0]
+        mb = sum(bs[0][k].nbytes for k in keys) / 1e6
+        ms = sorted(h2d[route])
+        med = ms[len(ms) // 2]
+        log(f'[train profile] H2D {route} route, batch {TRAIN_BATCH} at '
+            f'{TRAIN_SIZE}^2 ({mb:.1f} MB in {len(keys)} arrays, pinned '
+            f'then copied, CUDA events, {len(ms)} runs in turns): '
+            f'{", ".join(f"{v:.3f}" for v in h2d[route])} ms, median '
+            f'{med:.3f} ms = {med / step_ms:.2%} of the [train] median step '
+            f'({step_ms:.1f} ms) | {card_line()}')
 
     for tag, cfg in (('Hourglass-104', ModelConfig()), (
             'Hourglass-4stage', ModelConfig(basenet='hourglass4stage'))):
@@ -1719,8 +1760,6 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
     and end to end."""
     import torch
     from offsetguided_tpu_torch.cli.serve import build_infer, cli
-    from offsetguided_tpu_torch.ops.cuda import peaks
-    from offsetguided_tpu_torch.ops.image import normalize_images
 
     sd = torch.load(path, map_location='cpu', weights_only=False)['model']
     infer, _, _, model = build_infer(cli([]), model_cfg, state_dict=sd,
@@ -1744,7 +1783,22 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
              f'{float((poses - rp).abs().max())}, scores by '
              f'{float((scores - rs).abs().max())}')
 
-    pp = infer.postprocessor
+    hold_kernels('[train hand-off]', infer.postprocessor, model, images,
+                 skeleton, J, records)
+    log(f'[train hand-off] trained checkpoint served at {LONG_EDGE}^2 batch '
+        f'{N_IMG}: counts {counts.tolist()}, kernel launches {launches}; '
+        f'decode bit-equal to the plain kernels\' end to end, place by '
+        f'place; peaks bit-equal on the trained maps')
+    return launches
+
+
+def hold_kernels(tag, pp, model, images, skeleton, n_keypoints, records):
+    """The peaks and grouping kernels against their plain versions on the
+    maps and limbs `model` gives `images`: peaks bit-equal, grouping
+    bit-equal place by place (its error goes into `records`)."""
+    import torch
+    from offsetguided_tpu_torch.ops.cuda import peaks
+    from offsetguided_tpu_torch.ops.image import normalize_images
     with torch.inference_mode():
         preds = model(normalize_images(images))
         hmp = pp.select_stage(preds)['hmp']
@@ -1755,18 +1809,13 @@ def phase_train_handoff(dev, path, model_cfg, skeleton, records):
     pv, pys, pxs = peaks.peaks_topk_plain(maps, TOPK)
     if not (torch.equal(ys, pys) and torch.equal(xs, pxs)
             and torch.equal(bits(v), bits(pv))):
-        fail('train hand-off: peaks kernel differs from plain')
-    err = compare_grouping('[train hand-off] grouping', packed, skeleton,
+        fail(f'{tag}: peaks kernel differs from plain')
+    err = compare_grouping(f'{tag} grouping', packed, skeleton,
                            dataclasses.replace(pp.cfg,
                                                max_poses=pp.cfg.capacity),
-                           exact=True)
+                           n_keypoints=n_keypoints, exact=True)
     r = records['grouping']
     r['max_abs_err'] = max(r['max_abs_err'], err)
-    log(f'[train hand-off] trained checkpoint served at {LONG_EDGE}^2 batch '
-        f'{N_IMG}: counts {counts.tolist()}, kernel launches {launches}; '
-        f'decode bit-equal to the plain kernels\' end to end, place by '
-        f'place; peaks bit-equal on the trained maps')
-    return launches
 
 
 LOADER_WORKERS = 4            # the [train host] run's loader processes
@@ -2925,6 +2974,184 @@ def phase_train_crowdpose(dev, root):
     torch.cuda.empty_cache()
 
 
+FINETUNE_FREEZE = 'Hourglass104_0'     # the backbone, as the reference's
+FINETUNE_DROP = 'omp_'                 # --freeze backbone / offset drop
+FINETUNE_STEPS, FREEZE_TIMING_RUNS = 4, 5
+LOSS_HEADS = ('headnets.0.hp_convs.', 'headnets.1.reg_convs.',
+              'headnets.1.scale_convs.')
+
+
+def phase_finetune(dev, root, records):
+    """Fine-tuning through the CLIs a user calls, at full width: seeded
+    COCO Hourglass-104 weights written as a reference `.pth` by
+    `cli.export --to-torch`; `cli.train --dataset crowdpose
+    --torch-checkpoint` warm-starts the 14 / 17-head net from it with
+    `--freeze Hourglass104_0`, 4 steps at 512^2, batch 16, on the host
+    route (64 CrowdPose scenes): the unmatched entries equal the CPU
+    loader's, every frozen parameter stays bit-equal to its warm-start
+    value (weight decay 0), every head moved, no step skipped; `--resume`
+    of that checkpoint with `--drop-layers omp_ --drop-optim-state` for
+    one more step; `cli.evaluate --checkpoint` of the result on 16
+    CrowdPose scenes through the peaks and grouping kernels (the
+    `finetune` path's launches), then both kernels against their plain
+    versions on the fine-tuned model's maps and limbs. Last, a frozen and
+    an unfrozen train step of the CrowdPose net in turns (CUDA events)."""
+    import torch
+    from offsetguided_tpu_torch.cli import evaluate, export, serve, train
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.models import checkpoint as ckpt
+    from offsetguided_tpu_torch.models.network import init_reference_
+
+    pth = os.path.join(root, 'coco_seeded.pth')
+    export.main(['--to-torch', pth, '--input-size', str(TRAIN_SIZE)])
+    torch.cuda.empty_cache()
+    img_dir, ann = crowdpose_set(os.path.join(root, 'ft_train'),
+                                 crowdpose_scenes(TRAIN_IMAGES, seed=7))
+    base = ['--dataset', 'crowdpose', '--train-image-dir', img_dir,
+            '--train-annotations', ann, '--batch-size', str(TRAIN_BATCH),
+            '--square-length', str(TRAIN_SIZE), '--print-freq', '1',
+            '--freeze', FINETUNE_FREEZE]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r = train.main(base + ['--torch-checkpoint', pth, '--max-steps',
+                           str(FINETUNE_STEPS), '--checkpoint-dir',
+                           os.path.join(root, 'ft_warm')])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg = r['model_cfg']
+    train_summary('finetune', r['history'], wall,
+                  torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                  r['checkpoint'], steps=FINETUNE_STEPS, falling=False,
+                  net='Hourglass-104 warm-started from COCO into CrowdPose '
+                      'heads 14 / 17, backbone frozen,')
+    start = init_reference_(PoseNet(cfg), torch.Generator().manual_seed(0))
+    unmatched = ckpt.load_reference_into(start, pth)
+    if r['unmatched'] != unmatched or not unmatched:
+        fail(f'finetune: unmatched entries on the card {r["unmatched"]} != '
+             f'the CPU loader\'s {unmatched}')
+    start = dict(start.named_parameters())
+    trained = {k: v.detach().cpu() for k, v in r['model'].named_parameters()}
+    frozen = set(r['frozen'])
+    if frozen != {k for k in start if k.startswith('basenet.')}:
+        fail(f'finetune: --freeze {FINETUNE_FREEZE} froze {len(frozen)} of '
+             f'{len(start)} parameters, not the backbone\'s')
+    moved = [k for k in frozen if not torch.equal(trained[k], start[k])]
+    # the heads with a loss weight (lambdas 1 0 0 10000 10: heatmaps,
+    # offsets, scales; the background and jitter heads take no gradient)
+    heads = [k for k in start if k.startswith(LOSS_HEADS)]
+    still = [k for k in heads if torch.equal(trained[k], start[k])]
+    if moved or still or not heads:
+        fail(f'finetune: frozen parameters moved {moved[:5]}, heads that did '
+             f'not move {still[:5]}')
+    log(f'[finetune] warm start from {os.path.basename(pth)}: {len(unmatched)}'
+        f' unmatched entries (the CPU loader\'s: {unmatched[:2]} ...); '
+        f'{len(frozen)} frozen parameters bit-equal to their warm-start '
+        f'values after {FINETUNE_STEPS} steps, all {len(heads)} parameters '
+        f'of the weighted heads moved')
+    del r
+    torch.cuda.empty_cache()
+
+    r = train.main(base + ['--resume', ckpt.latest_checkpoint(
+        os.path.join(root, 'ft_warm')), '--drop-layers', FINETUNE_DROP,
+        '--drop-optim-state', '--max-steps', '1', '--checkpoint-dir',
+        os.path.join(root, 'ft_resume')])
+    h = r['history'][-1]
+    if not (np.isfinite(h['total']) and h['skipped'] == 0.0):
+        fail(f'finetune resume: {h}')
+    trained = {k: v.detach().cpu() for k, v in r['model'].named_parameters()}
+    if [k for k in frozen if not torch.equal(trained[k], start[k])]:
+        fail('finetune resume: a frozen parameter moved')
+    log(f'[finetune] --resume --drop-layers {FINETUNE_DROP} '
+        f'--drop-optim-state: 1 step, total {h["total"]:.4f}, step '
+        f'{h["step_ms"]:.2f} ms (CUDA events), checkpoint '
+        f'{os.path.basename(r["checkpoint"])}')
+    final = r['checkpoint']
+    del r, trained
+    torch.cuda.empty_cache()
+
+    ev_dir, ev_ann = crowdpose_set(os.path.join(root, 'ft_eval'),
+                                   crowdpose_scenes(16, seed=3))
+    reset_launches()
+    stats = evaluate.main(['--checkpoint', final, '--dataset', 'crowdpose',
+                           '--image-dir', ev_dir, '--annotation-file',
+                           ev_ann, '--batch-size', str(N_IMG)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches('finetune', launches, ('peaks', 'grouping'),
+                   never=('topk', 'nms_topk'))
+    if not all(np.isfinite(v) for v in stats.values()):
+        fail(f'finetune evaluate: metrics {stats}')
+    log(f'[finetune] evaluate --checkpoint on 16 CrowdPose scenes: AP '
+        f'{stats["AP"]:.4f} (4 + 1 steps from random weights), '
+        f'{stats["img_per_s"]:.2f} img/s (host clock), kernel launches '
+        f'{launches}')
+    args = serve.cli(['--dataset', 'crowdpose', '--checkpoint', final])
+    scfg = serve.model_config(args)
+    infer, skeleton, _, model = serve.build_infer(
+        args, scfg, serve.load_weights(args, scfg), dev)
+    images = torch.from_numpy(np.random.RandomState(12).randint(
+        0, 256, (N_IMG, LONG_EDGE, LONG_EDGE, 3), dtype=np.uint8)).to(dev)
+    hold_kernels('[finetune]', infer.postprocessor, model, images,
+                 tuple(skeleton.skeleton), J14, records)
+    del infer, model
+    torch.cuda.empty_cache()
+    freeze_timing(dev, cfg, img_dir, ann, sorted(frozen))
+    return {'finetune': launches}
+
+
+def freeze_timing(dev, cfg, img_dir, ann, frozen):
+    """One CrowdPose batch (host route, as `cli.train` feeds it) and the
+    train step of `cfg` unfrozen and with `frozen` in turns, on one model
+    and optimizer: the ms of each by CUDA events (2 warm-up steps each)."""
+    import torch
+    from offsetguided_tpu_torch.cli import train
+    from offsetguided_tpu_torch.config.defaults import (
+        AugmentationConfig, EncoderConfig, LossConfig, SkeletonConfig,
+        TrainConfig)
+    from offsetguided_tpu_torch.data import pipeline
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.models.network import init_reference_
+    from offsetguided_tpu_torch.parallel.train_step import (TrainStep,
+                                                            make_optimizer)
+    sk = SkeletonConfig.for_dataset('crowdpose')
+    enc = EncoderConfig()
+    ds = pipeline.CocoKeypoints(
+        img_dir, ann, skeleton=sk,
+        aug=AugmentationConfig(square_length=TRAIN_SIZE),
+        square_length=TRAIN_SIZE)
+    batch = pipeline._make_batch(ds, range(TRAIN_BATCH),
+                                 pipeline._batch_rng(0, 0, 0), 0)
+    imgs, targets, mask = train.device_batch(batch, ds, dev, enc, sk,
+                                             TRAIN_SIZE)
+    model = init_reference_(PoseNet(cfg), torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last)
+    opt = make_optimizer(TrainConfig(), model.parameters())
+    params = dict(model.named_parameters())
+    loss = LossConfig(stack_weights=(1.0,) * cfg.n_stacks)
+    steps = {'unfrozen': TrainStep(model, opt, loss),
+             'frozen': TrainStep(model, opt, loss,
+                                 frozen=[params[k] for k in frozen])}
+    ms = {k: [] for k in steps}
+    for i in range(2 + FREEZE_TIMING_RUNS):
+        for k, step in steps.items():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            step(imgs, targets, mask)
+            ev[1].record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                ms[k].append(ev[0].elapsed_time(ev[1]))
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    log(f'[finetune] CrowdPose train step at {TRAIN_SIZE}^2 batch '
+        f'{TRAIN_BATCH}, in turns (CUDA events): unfrozen '
+        f'{", ".join(f"{v:.2f}" for v in ms["unfrozen"])} ms, frozen '
+        f'backbone {", ".join(f"{v:.2f}" for v in ms["frozen"])} ms; '
+        f'median {med["frozen"]:.2f} / {med["unfrozen"]:.2f} = '
+        f'{med["frozen"] / med["unfrozen"]:.3f} | {card_line()}')
+    del model, opt, steps
+    torch.cuda.empty_cache()
+
+
 def phase_4stage_reference(dev):
     """The 4-stage net card vs CPU with TF32 off: the fp32 eval forward (BN
     folded) at 128^2 within 1e-3 of the heatmaps' scale, and one fp64 SGD
@@ -3256,7 +3483,8 @@ def phase_bench_train():
         c = out['config']
         log(f'[bench_train] device_aug {c["device_aug"]} warp '
             f'{c["warp_impl"]}: {out["value"]} img/s, {c["step_ms"]} ms a '
-            f'step (host clock: a 9-step run less a 3-step run) | '
+            f'step (host clock: the fastest of {c["repeats"]} 9-step runs '
+            f'less the fastest 3-step run, in turns) | '
             f'{card_line()}')
     torch.cuda.empty_cache()
 
@@ -3300,6 +3528,15 @@ def phase_bench_stem():
 
 
 
+def timed(phase, *args):
+    """`phase(*args)`, its seconds logged as a `[time]` line."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f'[time] {phase.__name__[len("phase_"):]} '
+        f'{time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3316,48 +3553,49 @@ def main() -> int:
     from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
     skeleton = tuple(COCO_PERSON_SKELETON)
     records = {}
-    phase_build()
-    phase_codec()
-    phase_peaks(dev, skeleton, records)
-    phase_grouping(dev, skeleton, records)
-    launches, serve, images = phase_full_width(dev)
-    phase_dispatch(serve, images)
-    phase_main_path_kernels(skeleton, serve, images, records)
-    phase_reference(dev, serve)
-    launches['batcher'] = phase_batcher(dev, serve)
-    phase_topk(dev, serve, records)
-    phase_nms_topk(dev, serve, records)
-    phase_large_k(dev)
+    timed(phase_build)
+    timed(phase_codec)
+    timed(phase_peaks, dev, skeleton, records)
+    timed(phase_grouping, dev, skeleton, records)
+    launches, serve, images = timed(phase_full_width, dev)
+    timed(phase_dispatch, serve, images)
+    timed(phase_main_path_kernels, skeleton, serve, images, records)
+    timed(phase_reference, dev, serve)
+    launches['batcher'] = timed(phase_batcher, dev, serve)
+    timed(phase_topk, dev, serve, records)
+    timed(phase_nms_topk, dev, serve, records)
+    timed(phase_large_k, dev)
     del serve, images
     torch.cuda.empty_cache()
-    launches.update(phase_crowdpose(dev, records))
-    launches.update(phase_serve_http(dev))
-    launches.update(phase_crowdpose_serve_http(dev))
-    launches.update(phase_bench())
-    phase_bench_serve()
+    launches.update(timed(phase_crowdpose, dev, records))
+    launches.update(timed(phase_serve_http, dev))
+    launches.update(timed(phase_crowdpose_serve_http, dev))
+    launches.update(timed(phase_bench))
+    timed(phase_bench_serve)
     with tempfile.TemporaryDirectory() as root:
-        launches.update(phase_bench_e2e(root))
-        launches.update(phase_tools_profile())
-        launches.update(phase_demo(dev, root))
-        launches.update(phase_export(dev, root))
-        launches.update(phase_evaluate(dev, root))
-        launches.update(phase_crowdpose_evaluate(dev, root))
-        launches.update(phase_oracle(dev, root))
-        launches.update(phase_crowdpose_oracle(dev, root))
+        launches.update(timed(phase_bench_e2e, root))
+        launches.update(timed(phase_tools_profile))
+        launches.update(timed(phase_demo, dev, root))
+        launches.update(timed(phase_export, dev, root))
+        launches.update(timed(phase_evaluate, dev, root))
+        launches.update(timed(phase_crowdpose_evaluate, dev, root))
+        launches.update(timed(phase_oracle, dev, root))
+        launches.update(timed(phase_crowdpose_oracle, dev, root))
         torch.cuda.empty_cache()
-        launches.update(phase_train(dev, root, skeleton, records))
-        phase_train_host(dev, root)
-        phase_train_4stage(dev, root)
-        phase_train_crowdpose(dev, root)
-        launches.update(phase_selfcheck(dev, root))
-        phase_train_one_step(dev, root)
-        phase_ddp(dev, root)
-        phase_ddp_one_step(dev)
-        phase_dryrun()
-        phase_4stage_reference(dev)
-        phase_bench_train()
-        phase_bench_warp()
-        phase_bench_stem()
+        launches.update(timed(phase_train, dev, root, skeleton, records))
+        timed(phase_train_host, dev, root)
+        timed(phase_train_4stage, dev, root)
+        timed(phase_train_crowdpose, dev, root)
+        launches.update(timed(phase_finetune, dev, root, records))
+        launches.update(timed(phase_selfcheck, dev, root))
+        timed(phase_train_one_step, dev, root)
+        timed(phase_ddp, dev, root)
+        timed(phase_ddp_one_step, dev)
+        timed(phase_dryrun)
+        timed(phase_4stage_reference, dev)
+        timed(phase_bench_train)
+        timed(phase_bench_warp)
+        timed(phase_bench_stem)
 
     kernels = []
     for key in KERNELS:

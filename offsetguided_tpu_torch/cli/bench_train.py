@@ -15,8 +15,10 @@ two.
 
 The weights are the JAX trainer's fresh initialization
 (`init_reference_`, seed 0). Timing: the host clock over `--n2` and over
-`--n1` steps, each run ending in a read of its last loss (a sync); the
-step time is their difference over `n2 - n1`.
+`--n1` steps, each run ending in a read of its last loss (a sync), the
+two runs in turns `REPEATS` times; the step time is the difference of
+their fastest runs over `n2 - n1` (the JAX tool times each once: a stall
+of the host in the shorter run then gives a step time below zero).
 
 Prints one JSON line: {"metric", "value", "unit", "config"}.
 """
@@ -29,6 +31,8 @@ import time
 
 import numpy as np
 import torch
+
+REPEATS = 3         # runs of n1 and of n2 steps; the fastest of each counts
 
 
 def main(argv=None) -> dict:
@@ -129,8 +133,8 @@ def main(argv=None) -> dict:
         return time.perf_counter() - t0
 
     run_n(2)                                   # warm-up
-    t1 = run_n(args.n1)
-    t2 = run_n(args.n2)
+    runs = [(run_n(args.n1), run_n(args.n2)) for _ in range(REPEATS)]
+    t1, t2 = (min(r) for r in zip(*runs))
     dt = (t2 - t1) / (args.n2 - args.n1)
     out = {
         'metric': 'train_step_imgs_per_sec',
@@ -139,7 +143,7 @@ def main(argv=None) -> dict:
         'config': {'batch': B, 'square': S, 'remat': args.remat,
                    'device_aug': args.device_aug,
                    'warp_impl': args.warp_impl if args.device_aug else None,
-                   'tiny': args.debug_tiny_model,
+                   'tiny': args.debug_tiny_model, 'repeats': REPEATS,
                    'step_ms': round(dt * 1e3, 2),
                    'device': (torch.cuda.get_device_name(dev)
                               if dev.type == 'cuda' else str(dev))},

@@ -3,8 +3,10 @@
 transform, OKS AP.
 
 Port of the JAX package's `cli/evaluate.py`, on `--device` (the card
-unless told otherwise). Weights: `--torch-checkpoint` (a reference `.pth`
-state dict, loaded strictly into the port's reference-named modules), or
+unless told otherwise). Weights: `--checkpoint` (a `posenet_NNN.pt` of the
+port's trainer, without its optimizer state), `--torch-checkpoint` (a
+reference `.pth`, loaded leaf by leaf as the JAX package converts it; the
+unmatched entries are printed and keep the trainer's fresh init), or
 random seeded weights with BatchNorm calibrated at `--long-edge`
 (`--debug-tiny-model` for a narrow network). Images are read with
 `data/coco.py::read_image`: JPEG and PNG through the port's codec
@@ -13,7 +15,7 @@ random seeded weights with BatchNorm calibrated at `--long-edge`
 `--dataset crowdpose` evaluates the CrowdPose 14-keypoint configuration:
 the heads follow the skeleton, and the metric is the CrowdPose protocol
 (AP and the easy / medium / hard crowdIndex bands). Not taken here:
-`--checkpoint` (orbax) and `--peaks-map-batch` (a TPU tuning knob).
+`--peaks-map-batch` (a TPU tuning knob with the same results).
 
     python -m offsetguided_tpu_torch.cli.evaluate --image-dir images \\
         --annotation-file ann.json --fixed-height --flip-test
@@ -34,8 +36,11 @@ def cli(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument('--image-dir', required=True)
     p.add_argument('--annotation-file', required=True)
-    p.add_argument('--torch-checkpoint', default=None,
-                   help='reference .pth checkpoint (state dict) to evaluate')
+    w = p.add_mutually_exclusive_group()
+    w.add_argument('--checkpoint', default=None,
+                   help="the port's training checkpoint (posenet_NNN.pt)")
+    w.add_argument('--torch-checkpoint', default=None,
+                   help='reference .pth checkpoint to convert and evaluate')
     p.add_argument('--device', default=None,
                    help="torch device; default the CUDA card, 'cpu' runs the "
                         'plain PyTorch versions of the kernels')
@@ -137,15 +142,15 @@ def main(argv=None) -> Dict[str, float]:
                                  evaluate_crowdpose_keypoints)
     from ..eval.harness import eval_image_ids, run_images
     from ..models import PoseNet, random_posenet
-    from ..models.checkpoint import load_reference_checkpoint
+    from .serve import load_weights
 
     dev = resolve_device(args.device)
     skeleton = SkeletonConfig.for_dataset(args.dataset)
     model_cfg = model_config(args)
-    if args.torch_checkpoint:
+    state_dict = load_weights(args, model_cfg)
+    if state_dict is not None:
         model = PoseNet(model_cfg)
-        model.load_state_dict(load_reference_checkpoint(args.torch_checkpoint),
-                              strict=True)
+        model.load_state_dict(state_dict, strict=True)
     else:
         model = random_posenet(model_cfg, 0, device=dev,
                                calib_size=args.long_edge)

@@ -10,16 +10,24 @@ on the CPU), the images per second, the convolution FLOPs counted by
 then the 10 top operations of a
 torch.profiler run over `--trace-iters` batches by total device time
 (CUDA kernels on the card; CPU operator time on the CPU): name, calls, ms,
-share. `--log-dir` also writes the run as a Chrome trace.
+share. `--dtype` sets the backbone's compute dtype (the JAX tool's flag;
+default the configuration's: bfloat16, float32 for `--debug-tiny-model`).
+`--trace` writes the profiled run as a Chrome trace (`trace.json`) into
+`--log-dir`, by default the JAX tool's `fwd_trace` in the temporary
+directory; `--log-dir` alone writes it too.
 
-    python -m offsetguided_tpu_torch.cli.profile_forward [--log-dir D]
+    python -m offsetguided_tpu_torch.cli.profile_forward [--trace]
+        [--log-dir D] [--dtype float32]
 
 The last line is one JSON object with the same numbers.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -71,9 +79,16 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument('--batch', type=int, default=8)
     ap.add_argument('--size', type=int, default=640)
+    ap.add_argument('--dtype', default=None, choices=['bfloat16', 'float32'],
+                    help="the backbone's compute dtype (default: the "
+                         "model configuration's)")
+    ap.add_argument('--trace', action='store_true',
+                    help='write the profiled run as a Chrome trace into '
+                         '--log-dir')
     ap.add_argument('--trace-iters', type=int, default=3)
     ap.add_argument('--log-dir', default=None,
-                    help='write the profiled run as a Chrome trace here')
+                    help='where the Chrome trace goes (default with --trace: '
+                         'fwd_trace in the temporary directory)')
     ap.add_argument('--device', default=None,
                     help='torch device (default: the card)')
     ap.add_argument('--debug-tiny-model', action='store_true')
@@ -86,17 +101,23 @@ def main(argv=None) -> dict:
     from .serve import model_config
 
     dev = resolve_device(args.device)
-    fwd, images = build_forward(args.batch, args.size, dev,
-                                model_config(args))
+    cfg = model_config(args)
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=args.dtype)
+    log_dir = args.log_dir
+    if args.trace and log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), 'fwd_trace')
+    fwd, images = build_forward(args.batch, args.size, dev, cfg)
     with FlopCounterMode(display=False) as counter:
         fwd(images)
     flops = counter.get_total_flops()
     dt = device_time(fwd, images, iters=5)
-    print(f'forward {args.size}^2 batch {args.batch}: {dt * 1e3:.2f} '
-          f'ms/batch ({args.batch / dt:.1f} img/s, {flops / dt / 1e12:.1f} '
+    print(f'forward {args.size}^2 batch {args.batch} {cfg.compute_dtype}: '
+          f'{dt * 1e3:.2f} ms/batch ({args.batch / dt:.1f} img/s, '
+          f'{flops / dt / 1e12:.1f} '
           f'TFLOP/s of {flops / 1e12:.3f} TFLOP)')
 
-    with trace(args.log_dir, dev) as prof:
+    with trace(log_dir, dev) as prof:
         for _ in range(args.trace_iters):
             fwd(images)
     rows, total = top_ops(prof, dev, TOP)
@@ -105,7 +126,10 @@ def main(argv=None) -> dict:
           f'{args.trace_iters} batches ---')
     for name, calls, ms, share in rows:
         print(f'{ms:9.2f} ms  x{calls:<5d} {share:6.1%}  {name[:100]}')
+    if log_dir is not None:
+        print(f'trace: {os.path.join(log_dir, "trace.json")}')
     out = {'batch': args.batch, 'size': args.size,
+           'dtype': cfg.compute_dtype,
            'ms_per_batch': round(dt * 1e3, 3),
            'img_per_s': round(args.batch / dt, 2),
            'tflop_per_batch': round(flops / 1e12, 4),

@@ -98,15 +98,26 @@ def model_config(args, skeleton: SkeletonConfig = SkeletonConfig()
 
 def load_weights(args, model_cfg: ModelConfig) -> Optional[dict]:
     """The state dict of `--torch-checkpoint` or `--checkpoint`, or None
-    (random seeded weights)."""
-    from ..models.checkpoint import load_checkpoint, load_reference_checkpoint
+    (random seeded weights). Either is loaded leaf by leaf into the
+    trainer's fresh initialization (seed 0), as the JAX package loads it:
+    a reference `.pth` (a full network or a bare backbone) through
+    `load_reference_into`, whose unmatched entries are printed and keep
+    the fresh values; the port's training checkpoint through
+    `load_checkpoint` without its optimizer state."""
+    from ..models.checkpoint import load_checkpoint, load_reference_into
+    from ..models.network import init_reference_
+    if not (args.torch_checkpoint or args.checkpoint):
+        return None
+    model = init_reference_(PoseNet(model_cfg),
+                            torch.Generator().manual_seed(0))
     if args.torch_checkpoint:
-        return load_reference_checkpoint(args.torch_checkpoint)
-    if args.checkpoint:
-        model = PoseNet(model_cfg)
+        unmatched = load_reference_into(model, args.torch_checkpoint)
+        if unmatched:
+            print(f'[convert] {len(unmatched)} unmatched entries',
+                  unmatched[:5])
+    else:
         load_checkpoint(args.checkpoint, model, drop_optimizer=True)
-        return model.state_dict()
-    return None
+    return model.state_dict()
 
 
 def build_infer(args, model_cfg: Optional[ModelConfig] = None,

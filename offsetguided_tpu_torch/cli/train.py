@@ -26,7 +26,17 @@ and `--remat` apply, the Hourglass-104 width flags do not, and
 `--debug-tiny-model` narrows only Hourglass-104, as in the JAX package).
 The device-aug warp is `--warp-impl tiled` (windowed banded matmuls, the
 default, as in the JAX package) or `patch` (the 4x4-footprint gather).
-Not ported, refused with a message: `--freeze` and `--drop-layers`.
+
+Fine-tuning, with the JAX trainer's flags and selections (each a
+`re.search` over the JAX parameter paths, as `PoseHeads_0/omp_0/kernel`,
+that `models/checkpoint.py::key_map` gives every port parameter):
+`--torch-checkpoint` warm-starts from a reference `.pth` (a full network,
+or the bare pretrained backbone), leaf by leaf as the JAX package converts
+it; `--freeze REGEX` zeroes the matching parameters' gradients before the
+clip and the optimizer (weight decay still moves them, as JAX's
+`masked(set_to_zero)` chain does); `--resume` restores leaf by leaf, with
+`--drop-layers REGEX` leaving the matching leaves at their fresh values
+and `--drop-optim-state` the optimizer state fresh at step 0.
 
 `--distributed` trains data parallel, one process per device
 (`parallel/distributed.py`), as the JAX trainer's processes do: each
@@ -181,16 +191,7 @@ def cli(argv=None):
                    help='swap in a narrow backbone (CI smoke tests)')
     g.add_argument('--max-steps', type=int, default=None,
                    help='stop after this many optimizer steps')
-    args = p.parse_args(argv)
-
-    refused = [
-        (args.freeze is not None, '--freeze is not ported'),
-        (args.drop_layers is not None, '--drop-layers is not ported'),
-    ]
-    for bad, msg in refused:
-        if bad:
-            p.error(msg)
-    return args
+    return p.parse_args(argv)
 
 
 def model_config(args, heads):
@@ -254,8 +255,9 @@ def main(argv=None) -> Dict:
     `imgs_per_sec`, the host clock `t` after the step finished and, on a
     CUDA device, `feed_ms` and `step_ms` by CUDA events over the printed
     interval), `val` (one record per validation pass: `epoch`, `loss`,
-    `batches`), `device`, `model_cfg`, the trained `model`, and `rank` /
-    `world`. With
+    `batches`), `device`, `model_cfg`, the trained `model`, `rank` /
+    `world`, `unmatched` (the warm start's unmatched entries, or None) and
+    `frozen` (the names of the frozen parameters). With
     `--distributed` the losses are the global batch's on every rank, and
     the process group is left at the end, also on an error."""
     args = cli(argv)
@@ -284,7 +286,6 @@ def train(args, dev) -> Dict:
     from ..data.pipeline import CocoKeypoints, batch_iterator
     from ..models import PoseNet
     from ..models import checkpoint as ckpt
-    from ..models.checkpoint import load_reference_checkpoint
     from ..models.network import init_reference_
     from ..parallel import distributed as D
     from ..parallel.train_step import (TrainStep, make_eval_step,
@@ -345,14 +346,18 @@ def train(args, dev) -> Dict:
 
     model = init_reference_(PoseNet(model_cfg),
                             torch.Generator().manual_seed(args.seed))
+    unmatched = None
     if args.torch_checkpoint:
-        missing, unexpected = model.load_state_dict(
-            load_reference_checkpoint(args.torch_checkpoint), strict=False)
-        if unexpected:
-            raise ValueError(f'{args.torch_checkpoint}: entries the model '
-                             f'does not have: {unexpected[:5]}')
-        logger.info('torch warm start from %s (%d entries keep their fresh '
-                    'init)', args.torch_checkpoint, len(missing))
+        unmatched = ckpt.load_reference_into(model, args.torch_checkpoint)
+        logger.info('torch warm start from %s (%d unmatched entries keep '
+                    'their fresh init)', args.torch_checkpoint,
+                    len(unmatched))
+    frozen = []
+    if args.freeze:
+        frozen = ckpt.frozen_parameters(model, args.freeze)
+        logger.info('--freeze %r: %d of %d parameter tensors frozen',
+                    args.freeze, len(frozen),
+                    len(list(model.parameters())))
     model = model.to(dev, memory_format=torch.channels_last)
     optimizer = make_optimizer(train_cfg, model.parameters())
     start_step, start_epoch = 0, 0
@@ -360,13 +365,14 @@ def train(args, dev) -> Dict:
         start_step, start_epoch, _ = ckpt.load_checkpoint(
             args.resume, model, optimizer,
             drop_optimizer=args.drop_optim_state,
-            recount_epoch=args.recount_epoch)
+            drop_layers=args.drop_layers, recount_epoch=args.recount_epoch)
         logger.info('resumed from %s at epoch %d, step %d', args.resume,
                     start_epoch, start_step)
+    params = dict(model.named_parameters())
     train_step = TrainStep(model, optimizer, loss_cfg,
                            step_lr_schedule(train_cfg, steps_per_epoch),
                            train_cfg.loss_explosion_guard, args.max_grad_norm,
-                           group=group)
+                           group=group, frozen=[params[n] for n in frozen])
     train_step.step = start_step
 
     from ..ops.augment import warp_slope_bound
@@ -484,7 +490,8 @@ def train(args, dev) -> Dict:
         it.close()
     return dict(steps=step, checkpoint=path, history=history,
                 val=val_history, device=str(dev), model_cfg=model_cfg,
-                model=model, rank=D.rank(), world=D.world())
+                model=model, rank=D.rank(), world=D.world(),
+                unmatched=unmatched, frozen=frozen)
 
 
 if __name__ == '__main__':

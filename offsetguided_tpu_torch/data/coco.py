@@ -47,11 +47,24 @@ def rle_decode_counts(s: str) -> List[int]:
 
 
 def rle_to_mask(rle: Dict) -> np.ndarray:
-    """COCO RLE dict {'size': [h, w], 'counts': str|list} -> uint8 mask."""
+    """COCO RLE dict {'size': [h, w], 'counts': str|list} -> uint8 mask.
+    A counts string is decoded by `csrc/rle.cpp` (`data/native.py`); where
+    that refuses it, and for a counts list, by the Python loop, as the JAX
+    package does."""
     h, w = rle['size']
     counts = rle['counts']
     if isinstance(counts, str):
+        from . import native
+        m = native.rle_string_to_mask(counts, h, w)
+        if m is not None:
+            return m
         counts = rle_decode_counts(counts)
+    return runs_to_mask(counts, h, w)
+
+
+def runs_to_mask(counts: List[int], h: int, w: int) -> np.ndarray:
+    """Column-major run lengths -> row-major uint8 (h, w) mask (the plain
+    version of `csrc/rle.cpp`'s rasterization)."""
     flat = np.zeros(h * w, dtype=np.uint8)
     pos = 0
     val = 0

@@ -4,10 +4,15 @@ a reference checkpoint.
 `save_checkpoint` / `load_checkpoint` / `latest_checkpoint` keep the
 port's own training checkpoints: `torch.save` of the model state dict, the
 optimizer state, the step, the epoch and the loss, one file an epoch
-(`posenet_<epoch>.pt`).
+(`posenet_<epoch>.pt`). `load_checkpoint` restores them leaf by leaf as the
+JAX package's does (`_merge_matching`): a leaf whose flax path matches
+`drop_layers`, that the file lacks or whose shape differs keeps its fresh
+value. `frozen_parameters` is the JAX `freeze_mask` selection (`--freeze`).
 
 `load_reference_checkpoint` reads a reference `.pth` file into a state dict
-for this package's PoseNet, whose modules keep the reference names.
+for this package's PoseNet, whose modules keep the reference names;
+`load_reference_into` copies it into a model as the JAX package's
+`convert_torch_state_dict` does, and lists what it left at the fresh init.
 `state_dict_from_jax` maps the JAX `{'params', 'batch_stats'}` tree (nested
 dicts of numpy arrays, as `jax.tree_util.tree_map(np.asarray, variables)`
 gives) onto this package's PoseNet state dict, and `jax_from_state_dict`
@@ -256,14 +261,70 @@ def state_dict_from_jax(variables_np: Dict, cfg: ModelConfig
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A reference `.pth` checkpoint -> PoseNet state dict: the dict under
-    `model_state_dict` or `state_dict` (or the file itself), with the
-    `module.` prefix of data-parallel training stripped."""
-    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+def load_reference_checkpoint(path) -> Dict[str, torch.Tensor]:
+    """A reference `.pth` checkpoint (or its state dict) -> PoseNet state
+    dict: the dict under `model_state_dict` or `state_dict` (or the file
+    itself), with the `module.` prefix of data-parallel training stripped
+    (not `module_list`), and a bare backbone's keys (the pretrained
+    hourglass: `pre.*`, `kps.*`, no `basenet.*`) given the `basenet.`
+    prefix."""
+    ckpt = (torch.load(path, map_location='cpu', weights_only=False)
+            if isinstance(path, (str, os.PathLike)) else path)
     sd = ckpt.get('model_state_dict', ckpt.get('state_dict', ckpt))
-    return {k[len('module.'):] if k.startswith('module.') else k: v
-            for k, v in sd.items()}
+    sd = {k[len('module.'):] if k.startswith('module.')
+          and not k.startswith('module_list') else k: v
+          for k, v in sd.items()}
+    if (not any(k.startswith('basenet.') for k in sd)
+            and any(k.startswith(('pre.', 'kps.')) for k in sd)):
+        sd = {f'basenet.{k}': v for k, v in sd.items()}
+    return sd
+
+
+def _flax_shape(shape, kind: str) -> Tuple[int, ...]:
+    shape = tuple(int(d) for d in shape)
+    if kind == 'conv':
+        o, i, h, w = shape
+        return (h, w, i, o)
+    return shape[::-1] if kind == 'dense' else shape
+
+
+_CONVBN_KERNEL = re.compile(r'ConvBN_\d+/Conv_0/kernel$')
+
+
+@torch.no_grad()
+def load_reference_into(model: torch.nn.Module, path_or_sd) -> List[str]:
+    """Copy a reference `.pth` file (or state dict) into `model` as the JAX
+    package's `convert_torch_state_dict` converts it: every `key_map`
+    entry whose torch key is there with the model's shape is copied;
+    torch keys the map does not name are ignored. Returns the unmatched
+    entries in JAX's words and order, each of which keeps the model's
+    fresh value: `no torch key <key>` (a missing key; a projection skip is
+    taken only where the file has one), `shape mismatch <flax path>:
+    <model shape> vs <file shape>` (flax layouts), `no flax param <flax
+    path>` (a ConvBN conv bias, or a projection skip, the model lacks)."""
+    sd = load_reference_checkpoint(path_or_sd)
+    target = model.state_dict()
+    unmatched: List[str] = []
+    for col, fk, tk, kind, optional in key_map(model.cfg):
+        v = sd.get(tk)
+        if tk not in target:
+            if v is not None:
+                unmatched.append(f'no flax param {fk}')
+            continue
+        if v is None:
+            if not optional:
+                unmatched.append(f'no torch key {tk}')
+            continue
+        if tuple(v.shape) == tuple(target[tk].shape):
+            target[tk].copy_(torch.as_tensor(v))
+        else:
+            unmatched.append(
+                f'shape mismatch {fk}: {_flax_shape(target[tk].shape, kind)}'
+                f' vs {_flax_shape(v.shape, kind)}')
+        bias = tk[:-len('weight')] + 'bias'
+        if _CONVBN_KERNEL.search(fk) and bias in sd and bias not in target:
+            unmatched.append(f'no flax param {fk[:-len("kernel")]}bias')
+    return unmatched
 
 
 def jax_from_state_dict(sd: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -313,19 +374,89 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(os.path.abspath(ckpt_dir), cands[-1]) if cands else None
 
 
+@torch.no_grad()
+def _merge_matching(model: torch.nn.Module, saved: Dict[str, torch.Tensor],
+                   drop_layers: Optional[str] = None) -> None:
+    """The JAX package's `_merge_matching` of `params` and of
+    `batch_stats`: each `key_map` leaf of `model` takes the saved value
+    unless its flax path matches `drop_layers` (`re.search`, the path as
+    `PoseHeads_0/omp_0/kernel`), the file lacks it or its shape differs;
+    then it keeps the model's value. Entries outside the key map (the
+    BatchNorm batch counters) are taken where present."""
+    pat = re.compile(drop_layers) if drop_layers else None
+    target = model.state_dict()
+    mapped = set()
+    for _, fk, tk, _, _ in key_map(model.cfg):
+        mapped.add(tk)
+        v = saved.get(tk)
+        if (tk in target and v is not None
+                and (pat is None or not pat.search(fk))
+                and tuple(v.shape) == tuple(target[tk].shape)):
+            target[tk].copy_(v)
+    for k, t in target.items():
+        if k not in mapped and k in saved and saved[k].shape == t.shape:
+            t.copy_(saved[k])
+
+
+def _restore_optimizer(path: str, optimizer: torch.optim.Optimizer,
+                       saved: Dict, model: torch.nn.Module) -> None:
+    """Load `saved` into `optimizer`, keeping its hyperparameters (the
+    flags of this run, as the JAX optimizer takes them from its chain).
+    Leaves the fresh state where the saved state is indexed over another
+    number of parameters (the JAX loader's structure drift); raises where
+    a restored moment would not fit its parameter."""
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    current = [n for n, _ in model.named_parameters()]
+    if ([len(g['params']) for g in saved['param_groups']]
+            != [len(g['params']) for g in optimizer.param_groups]):
+        return
+    for i, st in saved['state'].items():
+        p, name = params[int(i)], current[int(i)]
+        for k, v in st.items():
+            if (isinstance(v, torch.Tensor) and v.dim()
+                    and tuple(v.shape) != tuple(p.shape)):
+                raise ValueError(
+                    f'{path}: the optimizer state {k!r} of {name} has shape '
+                    f'{tuple(v.shape)}, the parameter {tuple(p.shape)}; '
+                    'resume with --drop-optim-state for a fresh optimizer '
+                    'state')
+    hyper = [{k: v for k, v in g.items() if k != 'params'}
+             for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for g, h in zip(optimizer.param_groups, hyper):
+        g.update(h)
+
+
 def load_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None, *,
                     drop_optimizer: bool = False,
+                    drop_layers: Optional[str] = None,
                     recount_epoch: bool = False) -> Tuple[int, int, float]:
-    """Restore a `save_checkpoint` file into `model` (strictly) and, unless
-    `drop_optimizer`, into `optimizer`. Returns (step, epoch, train_loss):
-    step 0 with `drop_optimizer`, epoch 0 with `recount_epoch`."""
+    """Restore a `save_checkpoint` file into `model` leaf by leaf
+    (`_merge_matching` with `drop_layers`) and, unless `drop_optimizer`,
+    the optimizer state into `optimizer`: as the JAX package's
+    `load_checkpoint`, a state saved over other parameters leaves the
+    fresh one, and the step is restored. Where a restored moment does not
+    fit its parameter (a head swap) the JAX step would fail on the shapes;
+    this raises, naming `--drop-optim-state`. Returns (step, epoch,
+    train_loss): step 0 with `drop_optimizer`, epoch 0 with
+    `recount_epoch`."""
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
-    model.load_state_dict(ckpt['model'], strict=True)
+    _merge_matching(model, ckpt['model'], drop_layers)
     step = int(ckpt['step'])
     if drop_optimizer:
         step = 0
     elif optimizer is not None and ckpt.get('optimizer') is not None:
-        optimizer.load_state_dict(ckpt['optimizer'])
+        _restore_optimizer(path, optimizer, ckpt['optimizer'], model)
     epoch = 0 if recount_epoch else int(ckpt['epoch'])
     return step, epoch, float(ckpt['train_loss'])
+
+
+def frozen_parameters(model: torch.nn.Module, regex: str) -> List[str]:
+    """The names of `model`'s parameters that `--freeze regex` freezes: the
+    JAX `freeze_mask` selection, a `re.search` over each parameter's flax
+    path (`key_map`, collection `params`)."""
+    pat = re.compile(regex)
+    names = dict(model.named_parameters())
+    return [tk for col, fk, tk, _, _ in key_map(model.cfg)
+            if col == 'params' and tk in names and pat.search(fk)]

@@ -32,7 +32,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / 'csrc'
 BUILD = PKG / '_build'
 SOURCES = ('peaks', 'grouping', 'topk', 'nms_topk')
-HOST_SOURCES = ('host_warp', 'codec')
+HOST_SOURCES = ('host_warp', 'codec', 'rle')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 # no contraction: only the source's explicit fmaf calls fuse
@@ -86,6 +86,11 @@ SIGNATURES = {
         'og_jpeg_encode': ([c_ptr, c_int, c_int, c_int, c_int, c_int, c_int,
                             c_int, c_ptr, ctypes.c_long, c_ptr], c_int),
         'og_png_unfilter': ([c_ptr, c_int, c_int, c_int, c_ptr], c_int),
+    },
+    'rle': {
+        'rle_string_to_mask': ([ctypes.c_char_p, c_int, c_int, c_int, c_ptr],
+                               c_int),
+        'rle_mask_to_runs': ([c_ptr, c_int, c_int, c_ptr, c_int], c_int),
     },
 }
 # csrc/topk_select.cuh's shared-memory arithmetic, for the selection

@@ -78,28 +78,32 @@ def losses(dev, preds: Dict, targets: Dict, mask, loss_kw: Dict) -> Dict:
 def train_step(dev, model_kw: Dict, state: Dict, images, anns, mask,
                lr: float = 1e-3, dtype: str = 'float32',
                spike_rank: int = -1, spike: float = 0.0,
-               loss_kw: Dict = None, steps: int = 1) -> Dict:
+               loss_kw: Dict = None, steps: int = 1, freeze: str = None,
+               max_grad_norm: float = None) -> Dict:
     """One SGD `TrainStep` (momentum 0.9, the step is lr * gradient) of
     the model of `model_kw` from the weights `state`, on this rank's slice
     of the global batch, with TF32 off; targets are encoded from the
     rank's annotations (`anns` at 1/4 of the images' side, COCO skeleton)
     in `dtype`. With `spike_rank`, that rank sets one labeled heatmap
     target to `spike` (the explosion guard's test). `steps` repeats the
-    step on the same batch. Returns the last metrics, the weights after
-    the steps and their digest. Without a process group it is the
-    one-process step on the whole batch."""
+    step on the same batch. `freeze` (a `--freeze` regex) and
+    `max_grad_norm` are the trainer's flags. Returns the last metrics, the
+    weights after the steps and their digest. Without a process group it
+    is the one-process step on the whole batch."""
     from ..device import exact_fp32
     with exact_fp32():
         return _train_step(dev, model_kw, state, images, anns, mask, lr,
-                           dtype, spike_rank, spike, loss_kw, steps)
+                           dtype, spike_rank, spike, loss_kw, steps, freeze,
+                           max_grad_norm)
 
 
 def _train_step(dev, model_kw, state, images, anns, mask, lr, dtype,
-                spike_rank, spike, loss_kw, steps):
+                spike_rank, spike, loss_kw, steps, freeze, max_grad_norm):
     from ..config.coco import COCO_PERSON_SIGMAS, COCO_PERSON_SKELETON
     from ..config.defaults import (EncoderConfig, HeadsConfig, LossConfig,
                                    ModelConfig, TrainConfig)
     from ..models import PoseNet
+    from ..models.checkpoint import frozen_parameters
     from ..ops.encoder import encode_targets
     from .train_step import TrainStep, make_optimizer
     kw = dict(model_kw, compute_dtype=dtype)
@@ -118,9 +122,12 @@ def _train_step(dev, model_kw, state, images, anns, mask, lr, dtype,
         tg.hmp[0, 5, 5, 3] = spike
     opt = make_optimizer(TrainConfig(optimizer='sgd', learning_rate=lr),
                          net.parameters())
+    params = dict(net.named_parameters())
     step = TrainStep(net, opt, LossConfig(stack_weights=(1.0,),
                                           **(loss_kw or {})),
-                     group=D.group())
+                     max_grad_norm=max_grad_norm, group=D.group(),
+                     frozen=[params[n] for n in frozen_parameters(
+                         net, freeze)] if freeze else ())
     for _ in range(steps):
         m = step(imgs, tg, D.local_slice(torch.from_numpy(mask)).to(dev))
     return dict(metrics={k: float(v) for k, v in m.items()},

@@ -10,13 +10,17 @@ BatchNorm running statistics; the optimizer updates match optax's:
   keeps the moments in bf16 and does the update in fp32;
 - `sgd`: momentum trace t = g + momentum * t, step lr * t
   (`torch.optim.SGD`);
-- weight decay adds wd * param to the gradient before either.
+- weight decay adds wd * param to the gradient before either;
+- a frozen parameter (`--freeze`) has its gradient zeroed before the clip,
+  as optax's `masked(set_to_zero)` at the head of the chain: the global
+  norm covers the trainable parameters, and weight decay and the moments
+  still act on the frozen ones.
 The learning rate of a step is the schedule at optax's count: the number
 of steps taken before it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -108,7 +112,9 @@ def data_parallel(model, loss_cfg: LossConfig, group):
     equal on every rank already), and the unused-parameter search only
     where a head's parameters take no gradient: a spread tower without the
     Laplace offset loss (the fused 1x1 heads give the spread rows a zero
-    gradient through their one matmul)."""
+    gradient through their one matmul). Frozen parameters (`--freeze`)
+    stay in the reducer: `TrainStep` zeroes their summed gradients, so
+    they need no unused-parameter search either."""
     from torch.nn.parallel import DistributedDataParallel
     sync_batchnorm(model, group)
     dev = next(model.parameters()).device
@@ -132,8 +138,11 @@ class TrainStep:
     by 0, which leaves NaN where a total overflowed to inf; here they are
     set to 0.)
     With `max_grad_norm`, gradients of a larger global norm are scaled to
-    it first (optax's clip_by_global_norm). Metrics stay on the device:
-    reading them waits for the step.
+    it first (optax's clip_by_global_norm). The gradients of the `frozen`
+    parameters are zeroed before that, never dropped: a parameter without
+    a gradient would be skipped by the optimizer, where the JAX chain
+    still decays it. Metrics stay on the device: reading them waits for
+    the step.
 
     With a process `group` (data parallel, each rank given its slice of
     the global batch) the step is the JAX step on the sharded batch: the
@@ -150,7 +159,8 @@ class TrainStep:
                  loss_cfg: LossConfig,
                  lr_schedule: Optional[Callable[[int], float]] = None,
                  explosion_guard: float = 1e8,
-                 max_grad_norm: Optional[float] = None, group=None):
+                 max_grad_norm: Optional[float] = None, group=None,
+                 frozen: Sequence[torch.nn.Parameter] = ()):
         self.model = model
         self.optimizer = optimizer
         self.loss_cfg = loss_cfg
@@ -158,6 +168,7 @@ class TrainStep:
         self.explosion_guard = explosion_guard
         self.max_grad_norm = max_grad_norm
         self.group = group
+        self.frozen = list(frozen)
         self.net = (model if group is None
                     else data_parallel(model, loss_cfg, group))
         self.step = 0
@@ -175,6 +186,11 @@ class TrainStep:
         losses = global_losses(losses, self.group)
         total = losses['total']
         ok = torch.isfinite(total) & (total < self.explosion_guard)
+        if self.frozen:
+            for p in self.frozen:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            torch._foreach_zero_([p.grad for p in self.frozen])
         grads = [p.grad for g in self.optimizer.param_groups
                  for p in g['params'] if p.grad is not None]
         for g in grads:

@@ -22,6 +22,9 @@ from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
 from offsetguided_tpu_torch.ops import augment
 from offsetguided_tpu_torch.ops.encoder import downscale_mask, encode_targets
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 SQUARE = 128
 SPEC_KEYS = ('image', 'mask_miss', 'anns', 'aug_mat', 'aug_mat_inv',
              'aug_scale_xy', 'aug_flags', 'aug_tint', 'valid_hw')

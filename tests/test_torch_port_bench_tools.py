@@ -21,6 +21,9 @@ import torch
 
 from offsetguided_tpu_torch.cli import bench_stem, bench_train, bench_warp
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 CPU = ['--device', 'cpu']
 
 

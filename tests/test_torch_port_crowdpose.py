@@ -59,6 +59,9 @@ from offsetguided_tpu_torch.ops import grouping  # noqa: E402
 from offsetguided_tpu_torch.ops.encoder import encode_targets  # noqa: E402
 from test_crowdpose_e2e import crowdpose_json, make_persons  # noqa: E402,F401
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 SIGMAS = np.asarray(jcp.CROWDPOSE_SIGMAS)
 J = 14
 

@@ -28,7 +28,13 @@ from offsetguided_tpu_torch.parallel import distributed, parity
 from test_torch_port_train import (configs, flat, init_variables, port_step,
                                    synth_batch, targets_both)
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 WORLD = 2
+# `--freeze` of the backbone with a clip that binds (on the trainable
+# gradients' norm)
+FREEZE = dict(freeze='Hourglass104_0', max_grad_norm=1e-3)
 TINY1 = dict(n_stacks=1, hg_order=2, dims=(16, 16, 24), modules=(1, 1, 1),
              cnv_dim=16, compute_dtype='float32')
 
@@ -114,7 +120,8 @@ def ranks():
              ('remat', 'train_step', dict(step, model_kw=dict(TINY1,
                                                               remat=True))),
              ('tower', 'train_step', dict(step, model_kw=tower, steps=2,
-                                          state=init_state(tower)))]
+                                          state=init_state(tower))),
+             ('freeze', 'train_step', dict(step, **FREEZE))]
     return distributed.spawn(parity.run_cases, WORLD, cases, 'cpu', True, 1)
 
 
@@ -291,6 +298,37 @@ def test_two_rank_remat_step_matches_one_rank_step(ranks):
     assert ranks[0]['remat']['digest'] == ranks[1]['remat']['digest']
     assert ranks[0]['remat']['metrics']['skipped'] == 0.0
     assert_matches_one_rank_step(ranks[1]['remat'])
+
+
+def test_two_rank_frozen_step_matches_one_rank_step(ranks):
+    """`--freeze Hourglass104_0 --max-grad-norm`: the frozen parameters
+    stay in DDP's reducer and their summed gradients are zeroed before
+    the clip, so two ranks take the one-process step on the whole batch
+    (the same losses, gradients and BN statistics at the one-step
+    tolerances), the frozen weights bit-equal to their start and the
+    ranks to each other."""
+    images, anns, mask, _, state = step_inputs()
+    one = parity.train_step('cpu', TINY1, state, images, anns, mask,
+                            **FREEZE)
+    got = ranks[0]['freeze']
+    assert got['digest'] == ranks[1]['freeze']['digest']
+    assert got['metrics']['skipped'] == 0.0
+    for k, v in got['metrics'].items():
+        np.testing.assert_allclose(v, one['metrics'][k], rtol=1e-4,
+                                   err_msg=k)
+    weights = {k: v for k, v in state.items()
+               if k.endswith(('weight', 'bias'))}
+    assert_one_step_close(weights, got['state'], one['state'])
+    for k in state:
+        if 'running' in k:
+            np.testing.assert_allclose(got['state'][k], one['state'][k],
+                                       rtol=0, atol=1e-5, err_msg=k)
+    frozen = [k for k in weights if k.startswith('basenet.')]
+    assert frozen
+    for k in frozen:
+        np.testing.assert_array_equal(got['state'][k], state[k], err_msg=k)
+    assert any(not np.array_equal(got['state'][k], state[k])
+               for k in weights if k.startswith('headnets.'))
 
 
 def test_explosion_guard_skips_on_every_rank(ranks):

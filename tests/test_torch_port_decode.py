@@ -22,6 +22,9 @@ from offsetguided_tpu_torch.config.defaults import DecoderConfig
 from offsetguided_tpu_torch.decoder import PostProcessor
 from offsetguided_tpu_torch.ops import decoder as dec
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 IMG = 128
 TEMPLATE = np.array([
     [0.50, 0.07], [0.46, 0.05], [0.54, 0.05], [0.42, 0.07], [0.58, 0.07],

@@ -22,7 +22,8 @@ from offsetguided_tpu_torch.config import defaults as TD
 from offsetguided_tpu_torch.data import codec
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_port_serve import tamed_variables  # noqa: E402
+from test_torch_port_serve import (  # noqa: E402
+    jit_posenet_init, tamed_variables)
 
 JModelConfig, TModelConfig = JD.ModelConfig, TD.ModelConfig
 TINY = dict(n_stacks=1, hg_order=2, dims=(8, 8, 12), modules=(1, 1, 1),
@@ -91,6 +92,7 @@ def runs(inputs):
         from offsetguided_tpu.ops import losses as jlosses
         from offsetguided_tpu.visualization import KeypointPainter
         mp.setattr(JD, 'ModelConfig', lambda **kw: JModelConfig(**TINY, **kw))
+        jit_posenet_init(mp)
         poses, losses = [], []
         paint = KeypointPainter.keypoints
         mp.setattr(KeypointPainter, 'keypoints',

@@ -26,6 +26,9 @@ from offsetguided_tpu_torch.eval import harness
 from offsetguided_tpu_torch.models import PoseNet, state_dict_from_jax
 from test_torch_port_model import random_variables, tiny
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 PKG = pathlib.Path(__file__).resolve().parents[1] / 'offsetguided_tpu_torch'
 DEC = dict(topk=8, thre_hmp=0.04, dist_max=40.0, person_thre=0.01)
 

@@ -32,6 +32,9 @@ from offsetguided_tpu_torch.ops.encoder import encode_targets
 from test_cocoeval import dt_at, dt_from_gt, make_crowd_gt, make_gt
 from test_torch_port_model import random_variables, tiny
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 SIGMAS = np.asarray(COCO_PERSON_SIGMAS)
 
 

@@ -33,6 +33,9 @@ from offsetguided_tpu_torch.ops.image import normalize_images
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_port_serve import tamed_variables  # noqa: E402
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 TINY = ['--debug-tiny-model', '--device', 'cpu']
 # a narrow 2-stack, 3-level variant through the width flags
 NARROW = ['--hg-order', '3', '--dims', '8,8,12,16', '--modules', '1,1,1,2',

@@ -822,6 +822,23 @@ def test_two_gloo_ranks_on_one_card_match_one_process(cuda, dtype):
     assert one_step_ok(e), e
 
 
+def test_frozen_train_step_matches_cpu(cuda):
+    """One SGD step of the tiny model with `--freeze Hourglass104_0
+    --max-grad-norm 1e-3` (TF32 off) on the card against the CPU: within
+    the one-step tolerances, the frozen weights bit-equal to their start
+    on the card."""
+    from offsetguided_tpu_torch.parallel import parity
+    kw = dict(tiny_step_kw(), freeze='Hourglass104_0', max_grad_norm=1e-3)
+    got = parity.train_step(cuda, **kw)
+    e = parity.step_errors(kw['state'], parity.train_step('cpu', **kw), got)
+    assert one_step_ok(e), e
+    frozen = [k for k in kw['state'] if k.startswith('basenet.')
+              and k.endswith(('weight', 'bias'))]
+    assert frozen
+    for k in frozen:
+        np.testing.assert_array_equal(got['state'][k], kw['state'][k])
+
+
 def test_one_nccl_rank_matches_one_process(cuda):
     """World size 1 over NCCL (DDP, the synchronized BatchNorm and the
     global normalizers with one rank) against the one-process step, fp32,

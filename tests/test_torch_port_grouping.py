@@ -19,6 +19,9 @@ from offsetguided_tpu_torch.ops.cuda import grouping
 sys.path.insert(0, __file__.rsplit('/', 1)[0])
 from test_grouping import make_person_limbs  # noqa: E402
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 SK = COCO_PERSON_SKELETON
 CFG = dict(person_thre=0.06, dist_max=20.0, use_scale=True, max_poses=8)
 

@@ -31,6 +31,9 @@ from test_grouping_adversarial import (  # noqa: E402
     _match_pose_sets, chain_limbs, conn, empty_limbs)
 from test_grouping_overflow import make_crowd  # noqa: E402
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 CASES = ['chain', 'chain_no_settle', 'equal_tie', 'extension_tie', 'fuzz',
          'crowd_40_64', 'crowd_78_64', 'crowd_78_128']
 

@@ -52,6 +52,9 @@ from offsetguided_tpu_torch.ops.image import normalize_images
 from offsetguided_tpu_torch.parallel.train_step import make_optimizer
 from test_torch_port_model import tiny
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 # the fp32 forward tolerance of tests/test_converter_numeric.py
 RTOL, ATOL = 2e-3, 2e-4
 SIZE = 64

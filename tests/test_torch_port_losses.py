@@ -15,6 +15,9 @@ from offsetguided_tpu_torch.config.defaults import LossConfig
 from offsetguided_tpu_torch.ops.encoder import Targets
 from offsetguided_tpu_torch.ops.losses import compute_losses
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 N, H, W, J, L = 2, 6, 7, 17, 19
 KEYS = ('hmp', 'bg', 'jomp', 'omp', 'spread', 'scmp')
 

@@ -15,6 +15,9 @@ from offsetguided_tpu_torch.data.synthetic import hard_annotations
 from offsetguided_tpu_torch.ops.encoder import downscale_mask
 from test_data import rle_encode_counts
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 
 def random_runs(rng, h, w):
     mask = (rng.rand(h, w) > rng.uniform(0.2, 0.8)).astype(np.uint8)
@@ -25,6 +28,74 @@ def random_runs(rng, h, w):
     if flat[0] == 1:
         counts = [0] + counts
     return mask, counts
+
+
+def test_native_rle_codec_matches_jax_and_the_plain_decoder():
+    """`csrc/rle.cpp` through `data/native.py` on 200 random masks: the
+    compressed string decodes to the mask, as JAX's native decoder and
+    the port's Python decoder give it, and the mask encodes to JAX's
+    column-major runs."""
+    from offsetguided_tpu.data import native as jnative
+    from offsetguided_tpu_torch.data import native
+    rng = np.random.RandomState(2)
+    for _ in range(200):
+        h, w = rng.randint(1, 60), rng.randint(1, 60)
+        mask, counts = random_runs(rng, h, w)
+        s = rle_encode_counts(counts)
+        ours = native.rle_string_to_mask(s, h, w)
+        np.testing.assert_array_equal(ours, mask)
+        np.testing.assert_array_equal(ours, jnative.rle_string_to_mask(
+            s, h, w))
+        np.testing.assert_array_equal(ours, coco.runs_to_mask(
+            coco.rle_decode_counts(s), h, w))
+        np.testing.assert_array_equal(native.rle_encode_mask(mask),
+                                      jnative.rle_encode_mask(mask))
+
+
+# (counts string, h, w): cut inside a word, runs past the mask, negative
+# runs, characters outside the alphabet, more runs than pixels (the C
+# decoder refuses: the Python decoder takes over), a character beyond ASCII
+MALFORMED = [
+    (rle_encode_counts([3, 4, 5]) + chr(48 + 0x20), 4, 4),
+    (rle_encode_counts([5, 100, 3]), 4, 5),
+    (rle_encode_counts([3, -2, 4, 6]), 4, 4),
+    (rle_encode_counts([2, 3]) + ' ~0', 3, 3),
+    ('!#%&0', 2, 3),
+    ('1111111', 1, 1),
+    (rle_encode_counts([2, 2]) + '\xe9', 2, 2),
+]
+
+
+def outcome(fn):
+    try:
+        return fn()
+    except Exception as e:                          # noqa: BLE001
+        return type(e)
+
+
+@pytest.mark.parametrize('case', range(len(MALFORMED)))
+def test_malformed_rle_strings_decode_as_jax(case):
+    """Each malformed string gives what the JAX package's `rle_to_mask`
+    gives: the same mask, or the same exception."""
+    s, h, w = MALFORMED[case]
+    rle = {'size': [h, w], 'counts': s}
+    ours, theirs = (outcome(lambda: coco.rle_to_mask(rle)),
+                    outcome(lambda: jcoco.rle_to_mask(rle)))
+    if isinstance(theirs, np.ndarray):
+        np.testing.assert_array_equal(ours, theirs)
+    else:
+        assert ours is theirs
+
+
+def test_failed_rle_build_raises(tmp_path, monkeypatch):
+    """A C++ source that does not compile raises; no silent fallback."""
+    from offsetguided_tpu_torch.ops.cuda import _build
+    (tmp_path / 'rle.cpp').write_text('not C++\n')
+    monkeypatch.setattr(_build, 'CSRC', tmp_path)
+    monkeypatch.setattr(_build, 'BUILD', tmp_path / 'build')
+    monkeypatch.delitem(_build._libs, 'rle', raising=False)
+    with pytest.raises(RuntimeError, match='rle.cpp'):
+        coco.rle_to_mask({'size': [2, 2], 'counts': '04'})
 
 
 def test_rle_decoding_matches_jax():

@@ -1,6 +1,7 @@
 """The port's PoseNet with weights carried across from JAX equals the JAX
 PoseNet (fp32, tiny widths), for every head and stack."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,9 @@ from offsetguided_tpu.models import PoseNet as JPoseNet
 from offsetguided_tpu_torch.config.defaults import HeadsConfig, ModelConfig
 from offsetguided_tpu_torch.models import PoseNet, state_dict_from_jax
 from offsetguided_tpu_torch.models.layers import fold_batchnorm
+
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
 
 # the tolerance of tests/test_converter_numeric.py: fp32 convolutions summed
 # in another order by XLA and by PyTorch's CPU kernels
@@ -37,12 +41,12 @@ def random_variables(jcfg, seed=0):
     """JAX PoseNet variables with seeded, tamed random values: He-scaled
     kernels and BatchNorm variances >= 0.5, so a deep forward stays sane."""
     model = JPoseNet(jcfg)
-    v = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)),
-                   train=False)
+    # the tree's shapes only: every leaf is drawn anew below
+    v = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False))
     rng = np.random.RandomState(seed)
 
     def draw(path, x):
-        x = np.asarray(x)
         name = jax.tree_util.keystr(path)
         if x.ndim == 4:
             return (rng.randn(*x.shape) / np.sqrt(np.prod(x.shape[:3]))
@@ -62,7 +66,8 @@ def forward_both(jcfg, cfg, size, seed=1):
     x = np.random.RandomState(seed).randn(2, size, size, 3).astype(np.float32)
     with torch.no_grad():
         ours = net(torch.from_numpy(x))
-    ref = jmodel.apply(variables, jnp.asarray(x), train=False)
+    ref = jax.jit(functools.partial(jmodel.apply, train=False))(
+        variables, jnp.asarray(x))
     return net, x, ours, ref
 
 

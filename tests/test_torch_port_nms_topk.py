@@ -12,6 +12,9 @@ from offsetguided_tpu.ops.pallas.nms_topk_pallas import nms_topk_pallas
 from offsetguided_tpu_torch.ops import decoder as dec
 from offsetguided_tpu_torch.ops.cuda import nms_topk as cuda_nms
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 
 def maps(kind, shape, seed=0):
     rng = np.random.RandomState(seed)

@@ -14,6 +14,9 @@ from offsetguided_tpu_torch.ops import decoder as dec
 from offsetguided_tpu_torch.ops.cuda import peaks
 from offsetguided_tpu_torch.ops.resize import upsample2d
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

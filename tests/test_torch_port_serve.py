@@ -27,6 +27,9 @@ from offsetguided_tpu_torch.data.transforms import make_meta
 from offsetguided_tpu_torch.models import state_dict_from_jax
 from offsetguided_tpu_torch.models.checkpoint import load_reference_checkpoint
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 FLAGS = ['--debug-tiny-model', '--long-edge', '128', '--batch-size', '2',
          '--batch-window-ms', '30', '--port', '0',
          '--request-timeout-s', '300']
@@ -52,6 +55,15 @@ def tamed_variables(jcfg, seed=2):
         return (0.5 * rng.randn(*x.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def jit_posenet_init(mp):
+    """The JAX `PoseNet.init` compiled as one program instead of run op by
+    op (~20 s on the CPU), for JAX tools given a `.pth` that replaces
+    every leaf of the initialization."""
+    init = JPoseNet.init
+    mp.setattr(JPoseNet, 'init', lambda self, rngs, *a, **kw: jax.jit(
+        lambda r, *x: init(self, r, *x, **kw))(rngs, *a))
 
 
 @pytest.fixture(scope='module')
@@ -102,8 +114,10 @@ def jax_infer(pth):
 
     def get(mode):
         if mode not in cache:
-            cache[mode] = jserve.build_infer(jserve.cli(
-                FLAGS + MODES[mode] + ['--torch-checkpoint', pth]))
+            with pytest.MonkeyPatch.context() as mp:
+                jit_posenet_init(mp)
+                cache[mode] = jserve.build_infer(jserve.cli(
+                    FLAGS + MODES[mode] + ['--torch-checkpoint', pth]))
         return cache[mode]
     return get
 

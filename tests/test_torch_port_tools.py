@@ -86,6 +86,18 @@ def test_profile_forward(capsys, tmp_path):
     assert (tmp_path / 'trace.json').stat().st_size > 0
 
 
+def test_profile_forward_float32_trace(capsys, tmp_path, monkeypatch):
+    """`--dtype float32 --trace` without `--log-dir`: the Chrome trace goes
+    into the JAX tool's default, `fwd_trace` in the temporary directory."""
+    import tempfile
+    monkeypatch.setattr(tempfile, 'tempdir', str(tmp_path))
+    out = profile_forward.main(TINY + ['--size', '64', '--batch', '1',
+                                       '--trace-iters', '1', '--dtype',
+                                       'float32', '--trace'])
+    assert json_lines(capsys) == [out] and out['dtype'] == 'float32'
+    assert (tmp_path / 'fwd_trace' / 'trace.json').stat().st_size > 0
+
+
 def test_profile_decode(capsys, monkeypatch):
     monkeypatch.setattr(profile_decode, 'ITERS', 2)   # CPU-sized run
     out = profile_decode.main(TINY + ['--size', '128', '--batch', '2',

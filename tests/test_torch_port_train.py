@@ -41,6 +41,9 @@ from offsetguided_tpu_torch.parallel.train_step import (
     TrainStep, clip_by_global_norm_, cyclic_lr_schedule, make_eval_step,
     make_optimizer, step_lr_schedule)
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 TINY = dict(hg_order=2, dims=(16, 16, 24), modules=(1, 1, 1), cnv_dim=16,
             compute_dtype='float32')
 # the forward tolerance of tests/test_converter_numeric.py: fp32
@@ -486,17 +489,24 @@ def test_cli_trains_and_resumes(tiny_set, tmp_path):
     assert torch.load(r2['checkpoint'], weights_only=False)['step'] == 3
 
 
-def test_cli_trains_host_route_with_validation(tiny_set, tmp_path):
+@pytest.fixture(scope='module')
+def host_run(tiny_set, tmp_path_factory):
+    """Three host-route steps over an epoch of two with the validation
+    pass at the epoch end."""
+    img_dir, ann = tiny_set
+    argv = [a for a in cli_args(tiny_set, tmp_path_factory.mktemp('host'),
+                                '--max-steps', '3', '--val-image-dir',
+                                img_dir, '--val-annotations', ann)
+            if a != '--device-aug']
+    assert not train_cli.cli(argv).device_aug
+    return train_cli.main(argv)
+
+
+def test_cli_trains_host_route_with_validation(host_run):
     """The default (host augmentation) route with --val-*: three steps
     over an epoch of two, the validation pass at the epoch end (two
     unaugmented batches, a finite loss), finite losses, a checkpoint."""
-    img_dir, ann = tiny_set
-    argv = [a for a in cli_args(tiny_set, tmp_path, '--max-steps', '3',
-                                '--val-image-dir', img_dir,
-                                '--val-annotations', ann)
-            if a != '--device-aug']
-    assert not train_cli.cli(argv).device_aug
-    r = train_cli.main(argv)
+    r = host_run
     assert r['steps'] == 3 and len(r['history']) == 3
     assert all(np.isfinite(h['total']) and h['skipped'] == 0.0
                for h in r['history'])
@@ -505,18 +515,17 @@ def test_cli_trains_host_route_with_validation(tiny_set, tmp_path):
     assert torch.load(r['checkpoint'], weights_only=False)['step'] == 3
 
 
-def test_cli_trains_with_loader_workers_and_resumes(tiny_set, tmp_path):
-    """--loader-workers 2: the same losses as the one-thread loader, and a
+def test_cli_trains_with_loader_workers_and_resumes(tiny_set, tmp_path,
+                                                     host_run):
+    """--loader-workers 2: the same losses as the one-thread loader (the
+    first two steps of `host_run`, before its validation pass), and a
     resume from the checkpoint goes on from its step."""
-    argv = [a for a in cli_args(tiny_set, tmp_path / 'a', '--max-steps', '2')
-            if a != '--device-aug']
-    serial = train_cli.main(argv)
     argv = [a for a in cli_args(tiny_set, tmp_path / 'b', '--max-steps', '2',
                                 '--loader-workers', '2')
             if a != '--device-aug']
     par = train_cli.main(argv)
     assert [h['total'] for h in par['history']] == \
-        [h['total'] for h in serial['history']]
+        [h['total'] for h in host_run['history'][:2]]
     argv = [a for a in cli_args(tiny_set, tmp_path / 'c', '--max-steps', '1',
                                 '--loader-workers', '2', '--resume',
                                 par['checkpoint'])
@@ -543,13 +552,3 @@ def test_cli_trains_one_step_on_the_tiled_warp(tiny_set, tmp_path,
     assert h['skipped'] == 0.0
     assert all(np.isfinite(h[k]) for k in ('total', 'hmp', 'omp'))
     assert calls and set(calls) == {np.sqrt(2.0) / (0.5 * 0.95)}
-
-
-@pytest.mark.parametrize('flags', [
-    ['--device-aug', '--freeze', 'hmp'],
-    ['--device-aug', '--drop-layers', 'hmp']])
-def test_cli_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit):
-        train_cli.cli(['--train-image-dir', 'i', '--train-annotations', 'a']
-                      + flags)
-    assert 'not ported' in capsys.readouterr().err

@@ -16,6 +16,9 @@ from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
 from offsetguided_tpu_torch.models import checkpoint as ckpt
 from offsetguided_tpu_torch.parallel import distributed, parity
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 LR = 1e-3
 
 

@@ -20,6 +20,9 @@ from offsetguided_tpu_torch.data import pipeline
 from offsetguided_tpu_torch.data.synthetic import make_hard_dataset
 from offsetguided_tpu_torch.ops import augment
 
+# the suite's worker processes share the host's cores
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-3, 0.05
 BORDER = np.array([124.0, 116.0, 104.0, 255.0], np.float32)
 SHAPES = {'small': (45, 57, 31, 50), 'sub_window': (400, 360, 128, 144)}
