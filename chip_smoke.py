@@ -78,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -583,14 +584,57 @@ PROGRESSIVE_DIGESTS = {
 }
 
 
-def progressive_cases():
-    """[(name, body)] of the committed progressive bodies."""
+def progressive_cases(digests=None):
+    """[(name, body)] of the committed bodies of `digests` (default
+    PROGRESSIVE_DIGESTS)."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = []
-    for name, (fn, _, _) in PROGRESSIVE_DIGESTS.items():
+    for name, (fn, _, _) in (digests or PROGRESSIVE_DIGESTS).items():
         with open(os.path.join(root, PROGRESSIVE_DIR, fn), 'rb') as f:
             out.append((name, f.read()))
     return out
+
+
+# Bodies of the JPEG processes cv2.imdecode reads beyond Huffman coding of
+# one or three components, committed under tests/torch_port_data/ (the
+# card's host has no cv2 or Pillow): the arithmetic ones are lossless
+# transcodes of `codec_image` scenes' Huffman bodies by
+# tests/torch_port_jpeg_writer.py, the CMYK one Pillow's, the YCCK one the
+# writer's, the smoothed one cv2's progressive body without its last three
+# refinement scans (libjpeg smooths its blocks). name -> (file, body
+# digest, pixel digest); the pixel digests are cv2.imdecode's, pinned on the
+# CPU by tests/test_torch_port_codec_arith.py.
+JPEG_FILE_DIGESTS = {
+    'arithmetic 420 restart 2 DAC': ('arith_420_rst2_dac.jpg',
+                                     'e2f7f377b7764c70', '634408402aadc47d'),
+    'arithmetic progressive 444': ('arith_prog_444.jpg', 'f4518ab2a9e74230',
+                                   '0ba604264421e47d'),
+    'Pillow CMYK 420': ('cmyk_420.jpg', '9ae804ff310e718b',
+                        'ef8e38bc4f50b60c'),
+    'YCCK 422': ('ycck_422.jpg', 'df8a2e7eec8e8d3f', 'f31dbcc586dc14ac'),
+    'progressive smoothed 420': ('prog_smooth_420.jpg', 'fb164e6c14af21aa',
+                                 'c93684f24b64fd87'),
+}
+# the arithmetic twin of 'jpeg 420 q95' (480x640), transcoded on the host
+# by tests/torch_port_jpeg_writer.py: its body digest; its pixels are
+# 'jpeg 420 q95''s
+ARITH_480_DIGEST = '89d2be2f16cdd067'
+
+
+@functools.lru_cache(maxsize=2)
+def arithmetic_twin(body: bytes) -> bytes:
+    """The arithmetic-coded twin of a Huffman body (the test writer's
+    lossless transcode)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                        'torch_port_jpeg_writer.py')
+    spec = importlib.util.spec_from_file_location('torch_port_jpeg_writer',
+                                                  path)
+    writer = sys.modules.setdefault(spec.name,
+                                    importlib.util.module_from_spec(spec))
+    if not hasattr(writer, 'transcode'):
+        spec.loader.exec_module(writer)
+    return writer.transcode(body)
 
 
 def codec_digests(body: bytes, pixels: np.ndarray):
@@ -2305,9 +2349,11 @@ def phase_dryrun():
 
 def phase_codec():
     """The port's JPEG / PNG codec, built on this host: the pinned bodies
-    decode to the pinned pixels (CODEC_DIGESTS, equal to cv2.imdecode's
-    where a CPU test pinned them), and the decode time of a 480x640 JPEG
-    and of a painted hard-set scene on one host thread."""
+    decode to the pinned pixels (CODEC_DIGESTS, PROGRESSIVE_DIGESTS,
+    JPEG_FILE_DIGESTS: cv2.imdecode's where a CPU test pinned them), the
+    480x640 body's arithmetic twin to its pixels, and the decode time of
+    the 480x640 body (Huffman, arithmetic, progressive) and of painted
+    hard-set scenes on one host thread."""
     from offsetguided_tpu_torch.cli.bench_serve import make_test_jpegs
     from offsetguided_tpu_torch.data import codec
 
@@ -2327,8 +2373,28 @@ def phase_codec():
     log(f'[codec] {len(PROGRESSIVE_DIGESTS)} progressive bodies (cv2-written:'
         f' 4:2:0, 4:4:4, grey, restarts): pixels equal to cv2.imdecode\'s '
         f'pinned digests')
+    for name, body in progressive_cases(JPEG_FILE_DIGESTS):
+        got = codec_digests(body, codec.decode(body))
+        if got != JPEG_FILE_DIGESTS[name][1:]:
+            fail(f'[codec] {name}: digests {got}, pinned '
+                 f'{JPEG_FILE_DIGESTS[name][1:]}')
+    log(f'[codec] {len(JPEG_FILE_DIGESTS)} bodies of the other processes '
+        f'({", ".join(JPEG_FILE_DIGESTS)}): bodies and pixels equal to the '
+        f'pinned digests (cv2.imdecode\'s pixels)')
     bodies = dict(codec_cases())
+    t0 = time.perf_counter()
+    arith = arithmetic_twin(bodies['jpeg 420 q95'])
+    t_twin = time.perf_counter() - t0
+    got = codec_digests(arith, codec.decode(arith))
+    want = (ARITH_480_DIGEST, CODEC_DIGESTS['jpeg 420 q95'][1])
+    if got != want:
+        fail(f'[codec] 480x640 arithmetic twin: digests {got}, pinned {want}')
+    log(f'[codec] the 480x640 4:2:0 q95 body transcoded to arithmetic coding '
+        f'on this host ({t_twin:.1f} s in Python): body digest pinned, pixels '
+        f'equal to its Huffman twin\'s')
+    log(f'[codec] card: {card_line()}')
     timed = [('480x640 q95 4:2:0 noisy gradient', bodies['jpeg 420 q95']),
+             ('480x640 q95 4:2:0 noisy gradient, arithmetic', arith),
              ('480x640 q95 4:2:0 noisy gradient, progressive',
               dict(progressive_cases())['progressive 420 q95'])]
     timed += [(f'{codec.decode(b).shape[1]}x{codec.decode(b).shape[0]} '
@@ -2357,8 +2423,9 @@ def phase_serve_http(dev):
     on port 0 in a thread, upsampled and `--lowres-decode`: 48 concurrent
     POSTs of codec JPEGs of the hard set's mixed sizes; every answer 200
     with poses of 17 keypoints; each mode's kernels launched. The
-    upsampled server then answers the committed progressive 480x640 body
-    200 with the poses it gives the PNG of the same pixels."""
+    upsampled server then answers the committed progressive 480x640 body,
+    its arithmetic twin and the committed Pillow CMYK body 200, each with
+    the poses it gives the PNG of the same pixels."""
     from offsetguided_tpu_torch.cli.bench_serve import make_test_jpegs
 
     bodies = make_test_jpegs(SERVE_REQUESTS, seed=1)
@@ -2366,9 +2433,14 @@ def phase_serve_http(dev):
              'serve_http_lowres': (['--lowres-decode'],
                                    ('nms_topk', 'grouping'),
                                    ('peaks', 'topk'))}
-    twins = dict(progressive_cases())['progressive 420 q95']
+    twins = [('progressive 480x640',
+              dict(progressive_cases())['progressive 420 q95']),
+             ('arithmetic 480x640',
+              arithmetic_twin(dict(codec_cases())['jpeg 420 q95'])),
+             ('Pillow CMYK 64x96',
+              dict(progressive_cases(JPEG_FILE_DIGESTS))['Pillow CMYK 420'])]
     return {path: serve_burst(dev, path, extra, need, never, bodies, J,
-                              twins if path == 'serve_http' else None)
+                              twins if path == 'serve_http' else ())
             for path, (extra, need, never) in modes.items()}
 
 
@@ -2381,12 +2453,12 @@ def post_json(url, body, timeout=300):
 
 
 def serve_burst(dev, path, extra, need, never, bodies, n_kp,
-                progressive=None) -> dict:
+                twins=()) -> dict:
     """One full-width `cli.serve` server (its flags plus `extra`) on port 0
     in a thread, `bodies` POSTed at once: every answer 200 with poses of
     `n_kp` keypoints, the kernels of `need` launched and none of `never`.
-    With a `progressive` JPEG body, that body and the PNG of its pixels
-    are then POSTed one after the other: both 200, the same poses.
+    Then for each (name, JPEG body) of `twins`, that body and the PNG of its
+    pixels are POSTed one after the other: both 200, the same poses.
     Returns the path's launches."""
     import torch
     import urllib.request
@@ -2429,21 +2501,22 @@ def serve_burst(dev, path, extra, need, never, bodies, n_kp,
         launches = read_launches()
         with urllib.request.urlopen(url + '/metrics', timeout=30) as r:
             m = json.loads(r.read())
-        if progressive is not None:
+        answered = []
+        for name, body in twins:
             from offsetguided_tpu_torch.data import codec
-            png = codec.encode_png(codec.decode(progressive))
-            twin = [post_json(url, b) for b in (progressive, png)]
+            png = codec.encode_png(codec.decode(body))
+            answered.append((name, [post_json(url, b) for b in (body, png)]))
     finally:
         srv.shutdown()
         srv.server_close()
-    if progressive is not None:
+    for name, twin in answered:
         for _, a in twin:
             a.pop('latency_ms', None)
         if [st for st, _ in twin] != [200, 200] or twin[0][1] != twin[1][1]:
-            fail(f'{path}: the progressive body and its PNG twin answered '
+            fail(f'{path}: the {name} JPEG and its PNG twin answered '
                  f'{[st for st, _ in twin]}, poses equal: '
                  f'{twin[0][1] == twin[1][1]}')
-        log(f'[serve http] {path}: a progressive 480x640 JPEG POSTed: 200, '
+        log(f'[serve http] {path}: a {name} JPEG POSTed: 200, '
             f'{len(twin[0][1]["poses"])} poses, equal to its PNG twin\'s')
     bad = [a for a in answers if a is None or a[0] != 200]
     if bad:

@@ -5,16 +5,19 @@ without OpenCV.
 IMREAD_COLOR)` (and `imread` what it gets from `cv2.imread`), with the
 channels in RGB order, pixel for pixel:
 
-- JPEG: baseline, extended sequential and progressive Huffman, 8-bit,
-  grey or three components, any integral sampling (4:4:4, 4:2:2, 4:2:0,
-  4:4:0, 4:1:1), restart markers. The C++ in `csrc/codec.cpp` (built at
-  first use, called through ctypes, which releases the GIL) repeats
-  libjpeg-turbo's progressive scans, its integer IDCT, its "fancy" chroma
-  upsampling and its YCbCr tables; the EXIF orientation is applied as
-  OpenCV applies it. Arithmetic-coded, lossless, hierarchical and 12-bit
-  bodies raise a `ValueError` that names what is not supported, as does a
-  progressive body whose scans leave one of the first AC coefficients
-  unrefined (libjpeg-turbo would smooth it; see `csrc/codec.cpp`).
+- JPEG: 8-bit sequential and progressive, Huffman- or arithmetic-coded,
+  grey, YCbCr / RGB or four components (CMYK, YCCK), any integral
+  sampling factors, restart markers. The C++ in `csrc/codec.cpp` (built
+  at first use, called through ctypes, which releases the GIL) repeats
+  libjpeg-turbo's entropy decoders (its QM decoder among them), its block
+  smoothing of progressive bodies left not fully refined, its integer
+  IDCT as its x86 SIMD code computes it, its "fancy" upsampling, its
+  colour tables and OpenCV's CMYK -> BGR rule, and libjpeg's and cv2's
+  rules for markers and tables; the EXIF orientation is applied as OpenCV
+  applies it. Where cv2.imdecode returns nothing -- lossless,
+  hierarchical and 12-bit bodies, two or more than four components,
+  fractional sampling, a body cut before its data ends -- a `ValueError`
+  names why.
 - PNG: every colour type and bit depth, all five filters, Adam7.
   IMREAD_COLOR's rules: alpha dropped, 16-bit samples cut to their high
   byte, grey replicated, palette expanded, 1/2/4-bit grey scaled to 8
@@ -38,21 +41,19 @@ import numpy as np
 _ERRORS = {
     1: 'not a JPEG body',
     2: 'corrupt JPEG body',
-    4: 'arithmetic-coded JPEG is not supported',
     5: 'lossless or hierarchical JPEG is not supported',
     6: 'JPEG sample precision other than 8 bits (12-bit JPEG) is not '
        'supported',
-    7: 'JPEG with other than 1 or 3 components is not supported',
-    8: 'unsupported JPEG sampling factors',
-    9: 'corrupt JPEG data: bad Huffman code',
+    7: 'JPEG with other than 1, 3 or 4 components is not supported',
+    8: 'unsupported JPEG sampling factors (fractional, or more than 10 '
+       'blocks to an interleaved MCU)',
+    9: 'bad JPEG Huffman table: a DC symbol above 15',
     10: 'JPEG without a frame header',
     11: 'output buffer too small',
-    12: 'bad image size (at most 2**28 pixels)',
+    12: 'bad image size (at most 65500 a side and 2**28 pixels)',
     13: 'bad or missing JPEG table',
     14: 'bad PNG filter type',
     15: 'out of memory',
-    16: 'progressive JPEG whose first AC coefficients are not fully '
-        'refined (libjpeg would smooth its blocks; not supported)',
     17: 'truncated JPEG body (no end-of-image marker)',
 }
 MAX_PIXELS = 1 << 28       # csrc/codec.cpp's kMaxPixels
@@ -251,7 +252,7 @@ def decode(data) -> np.ndarray:
     """JPEG or PNG body -> (H, W, 3) uint8 RGB; `ValueError` for an empty,
     unknown, unsupported or corrupt body."""
     head = bytes(data[:8])
-    if head.startswith(b'\xff\xd8'):
+    if head.startswith(b'\xff\xd8\xff'):    # cv2's JPEG signature
         return decode_jpeg(data)
     if head == _PNG_SIG:
         return decode_png(data)

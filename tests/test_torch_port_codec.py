@@ -1,12 +1,14 @@
 """The port's image codec (`data/codec.py` + `csrc/codec.cpp`) against
 OpenCV on the CPU: JPEG decode equal to cv2.imdecode(IMREAD_COLOR) pixel
 for pixel (qualities, every sampling mode, grey, restart intervals, sizes
-down to 1x1, EXIF orientation), unsupported JPEG processes refused with a
+down to 1x1, EXIF orientation), the JPEG processes cv2 refuses (lossless,
+hierarchical, 12-bit, two components, fractional sampling) refused with a
 ValueError, PNG decode equal to cv2's for every colour type and depth,
 the encoders' bodies decoding equal in cv2 and in the port (the JPEG
 encoder's bytes equal to cv2.imencode's), `read_image` equal to the JAX
 package's cv2 read without cv2, and the digests `chip_smoke.py`'s
 [codec] phase checks on the card's host."""
+import io
 import struct
 import sys
 import zlib
@@ -17,11 +19,14 @@ import numpy as np
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
+from PIL import Image
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / 'tests'))
 
 import chip_smoke  # noqa: E402
+import torch_port_jpeg_writer as W  # noqa: E402
 from offsetguided_tpu_torch.data import codec, coco  # noqa: E402
 from offsetguided_tpu_torch.data.synthetic import make_hard_dataset  # noqa: E402
 
@@ -128,31 +133,52 @@ def test_jpeg_exif_orientation_as_cv2(orientation, tmp_path):
                               cv2.imread(str(path))[:, :, ::-1])
 
 
-def _sof_edit(body: bytes, marker: int = None, precision: int = None):
-    i = body.index(b'\xff\xc0')
-    b = bytearray(body)
-    if marker is not None:
-        b[i + 1] = marker
-    if precision is not None:
-        b[i + 4] = precision
-    return bytes(b)
+def _refused_body(case: str) -> bytes:
+    """A body of a JPEG process cv2.imdecode does not read, written as
+    that process writes it (the hierarchical one: a baseline body whose
+    frame is marked SOF6, differential progressive)."""
+    grey = image(20, 27, 3, 1)[:, :, 0]
+    if case == 'lossless':
+        return W.write_lossless(grey)
+    if case == 'hierarchical':
+        body = cv_jpeg(image(40, 56, 5, 2))
+        i = body.index(b'\xff\xc0')
+        return body[:i + 1] + b'\xc6' + body[i + 2:]
+    if case == '12-bit':
+        samples = np.random.RandomState(0).randn(20, 27) * 300 + 2048
+        frame = W.frame_from_planes(
+            [np.clip(samples, 0, 4095)], 27, 20, [(1, 1)],
+            {0: W.quant_table(90, precision=12)}, [0], precision=12)
+        return W.write_huffman(frame)
+    factors = {'two components': [(1, 1), (1, 1)],
+               'fractional sampling': [(3, 1), (2, 1), (1, 1)]}[case]
+    frame = W.frame_from_planes([grey] * len(factors), 27, 20, factors,
+                                {0: W.quant_table(90)}, [0] * len(factors))
+    return W.write_huffman(frame)
 
 
-def test_unsupported_jpeg_raises():
-    img = image(40, 56, 5, 2)
-    base = cv_jpeg(img)
-    for arithmetic in (0xC9, 0xCA):           # sequential, progressive
-        with pytest.raises(ValueError, match='arithmetic'):
-            codec.decode(_sof_edit(base, marker=arithmetic))
-    with pytest.raises(ValueError, match='hierarchical'):
-        codec.decode(_sof_edit(base, marker=0xC6))
-    with pytest.raises(ValueError, match='lossless'):
-        codec.decode(_sof_edit(base, marker=0xC3))
-    with pytest.raises(ValueError, match='12-bit'):
-        codec.decode(_sof_edit(base, precision=12))
-    for bad in (b'', b'not an image', b'\xff\xd8\xff', b'\x89PNG\r\n\x1a\nxx'):
-        with pytest.raises(ValueError):
-            codec.decode(bad)
+@pytest.mark.parametrize('case,match', [
+    ('hierarchical', 'hierarchical'), ('lossless', 'lossless'),
+    ('12-bit', '12-bit'), ('two components', 'components'),
+    ('fractional sampling', 'sampling'), ('not an image', None)])
+def test_unsupported_jpeg_raises(case, match):
+    """Each JPEG process the codec refuses is one cv2.imdecode refuses: a
+    later cv2 that reads one of them shows here. Empty, cut and non-image
+    bodies are refused too."""
+    if case == 'not an image':
+        for bad in (b'', b'not an image', b'\xff\xd8\xff',
+                    b'\x89PNG\r\n\x1a\nxx'):
+            with pytest.raises(ValueError):
+                codec.decode(bad)
+        return
+    body = _refused_body(case)
+    assert cv2.imdecode(np.frombuffer(body, np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match=match):
+        codec.decode(body)
+    if case == 'lossless':       # a real lossless body: Pillow reads it
+        assert np.array_equal(np.asarray(Image.open(io.BytesIO(body))),
+                              image(20, 27, 3, 1)[:, :, 0])
 
 
 def test_oversized_bodies_refused():

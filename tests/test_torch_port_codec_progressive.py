@@ -3,12 +3,13 @@ OpenCV on the CPU: bodies cv2.imencode writes with IMWRITE_JPEG_PROGRESSIVE
 (libjpeg-turbo's own scan script: DC first and refine, AC bands, AC
 refinement, EOB runs) decode pixel-equal to cv2.imdecode over sizes,
 sampling modes, grey, qualities and restart intervals; scan scripts cut
-from them decode as cv2 decodes them where libjpeg-turbo would not smooth
-the blocks, and are refused by name where it would; cut and corrupted
-bodies give a ValueError or pixels, never a crash; the committed bodies
+from them, and from their arithmetic twins, decode as cv2 decodes them,
+libjpeg-turbo's block smoothing included; cut and corrupted bodies give
+cv2's pixels or a ValueError, never a crash; the committed bodies
 (tests/torch_port_data/) decode to the digests `chip_smoke.py` checks on
-the card's host; and the server answers a progressive POST as it answers
-the PNG of the same pixels."""
+the card's host; and the server answers a progressive, an arithmetic and
+a CMYK POST as it answers the PNG of the same pixels."""
+import io
 import json
 import sys
 import threading
@@ -20,11 +21,14 @@ import numpy as np
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
+from PIL import Image
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / 'tests'))
 
 import chip_smoke  # noqa: E402
+import torch_port_jpeg_writer as W  # noqa: E402
 from offsetguided_tpu_torch.data import codec  # noqa: E402
 
 SAMPLING = {'444': cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
@@ -147,61 +151,67 @@ def would_smooth(script, n_comp):
     return bool((bits[:, 1:10] != 0).any())
 
 
+def port_or_none(body):
+    """codec.decode, or None where it raises a ValueError."""
+    try:
+        return codec.decode(body)
+    except ValueError:
+        return None
+
+
+@pytest.mark.parametrize('coding', ['huffman', 'arithmetic'])
 @pytest.mark.parametrize('grey', [False, True])
-def test_cut_scan_scripts(grey):
-    """Every single scan left out of cv2's script, and every tail of it
-    cut off: where libjpeg-turbo would not smooth, the pixels are
-    cv2.imdecode's; where it would (an AC band of the first nine
-    coefficients not fully refined, e.g. the last luma refinement left
-    out), the port refuses the body by name instead of returning other
-    pixels; no body crashes."""
+def test_cut_scan_scripts(grey, coding):
+    """Every single scan left out of cv2's script (or of its arithmetic
+    twin's), and every tail of it cut off: the pixels are cv2.imdecode's
+    for every variant -- where libjpeg-turbo smooths the blocks (an AC
+    band of the first nine coefficients not fully refined, e.g. the last
+    luma refinement left out; with no AC data at all the DC interpolated
+    too) as well as where it does not."""
     img = image(45, 61, 4, 1)
     body = progressive(img[:, :, 0] if grey else img, 85, '420', 3)
+    if coding == 'arithmetic':
+        body = W.transcode(body)
     script = scans(body)
     n_comp = 1 if grey else 3
     variants = [(i,) for i in range(len(script))]
     variants += [tuple(range(k, len(script))) for k in range(1, len(script))]
-    refused = decoded = 0
+    smoothed = 0
     for drop in variants:
         cut = without_scans(body, drop)
         kept = [s for i, s in enumerate(script) if i not in drop]
         ref = cv_decode(cut)
-        try:
-            px = codec.decode(cut)
-        except ValueError as e:
-            assert 'not fully refined' in str(e) or 'Huffman' in str(e), e
-            if 'not fully refined' in str(e):
-                assert would_smooth(kept, n_comp), drop
-                refused += 1
-            continue
-        assert not would_smooth(kept, n_comp), drop
-        assert ref is not None and np.array_equal(px, ref), drop
-        decoded += 1
-    assert refused >= 2 and decoded >= 2, (refused, decoded)
+        assert ref is not None, drop
+        px = codec.decode(cut)
+        assert np.array_equal(px, ref), drop
+        smoothed += would_smooth(kept, n_comp)
+    assert 2 <= smoothed < len(variants), smoothed
 
 
-def test_cut_and_corrupt_bodies_never_crash():
+@pytest.mark.parametrize('coding', ['huffman', 'arithmetic'])
+def test_cut_and_corrupt_bodies_never_crash(coding):
     """Cuts at every 7th byte (with and without an EOI put back) and
-    random byte flips: a ValueError or an image of the body's size; a
+    random byte flips, of a progressive body or of its arithmetic twin: a
     body that ends before its EOI is refused as truncated, as cv2 gives
-    nothing for it; cut entropy data followed by EOI decodes as cv2 does
-    where cv2 decodes it and the port accepts it."""
+    nothing for it; a cut one with the EOI put back decodes as cv2 does
+    (Huffman data stops at the cut, arithmetic data reads zero bytes past
+    it; libjpeg smooths what the last scans left unrefined), or is refused
+    where cv2 gives nothing; a flipped one gives a ValueError or pixels,
+    never a crash, and cv2's pixels where both decode."""
     img = image(40, 56, 5, 1)
     body = progressive(img, 80, '420', 2)
+    if coding == 'arithmetic':
+        body = W.transcode(body)
     shape = img.shape
     same = 0
     for cut in range(2, len(body) - 2, 7):
         with pytest.raises(ValueError):
             codec.decode(body[:cut])
         fixed = body[:cut] + b'\xff\xd9'
-        try:
-            px = codec.decode(fixed)
-        except ValueError:
-            continue
-        assert px.shape == shape
-        ref = cv_decode(fixed)
-        if ref is not None:
-            assert np.array_equal(px, ref), cut
+        px, ref = port_or_none(fixed), cv_decode(fixed)
+        assert (px is None) == (ref is None), cut
+        if px is not None:
+            assert px.shape == shape and np.array_equal(px, ref), cut
             same += 1
     assert same > 0
     rng = np.random.RandomState(0)
@@ -209,11 +219,12 @@ def test_cut_and_corrupt_bodies_never_crash():
         bad = bytearray(body)
         for i in rng.randint(2, len(body), rng.randint(1, 6)):
             bad[i] = rng.randint(0, 256)
-        try:
-            px = codec.decode(bytes(bad))
-        except ValueError:
+        px = port_or_none(bytes(bad))
+        if px is None:
             continue
         assert px.dtype == np.uint8 and px.ndim == 3
+        ref = cv_decode(bytes(bad))
+        assert ref is None or np.array_equal(px, ref)
 
 
 def test_truncated_baseline_refused_like_cv2():
@@ -246,14 +257,10 @@ def test_committed_progressive_bodies():
     assert b'\xff\xdd' in bodies['progressive 420 q50 restart 2']
 
 
-def test_server_answers_progressive_as_png():
-    """`cli.serve` on the CPU (tiny model, random weights): a progressive
-    POST is answered 200 (it was 400, 'undecodable image'), with the
-    poses of the PNG of the same pixels."""
+@pytest.fixture(scope='module')
+def tiny_server():
+    """`cli.serve` on the CPU (tiny model, random weights) on port 0."""
     from offsetguided_tpu_torch.cli import serve
-    img = chip_smoke.codec_image(96, 128, seed=9)
-    body = progressive(img, 90, '420')
-    png = codec.encode_png(codec.decode(body))
     args = serve.cli(['--device', 'cpu', '--debug-tiny-model', '--long-edge',
                       '128', '--batch-size', '2', '--port', '0',
                       '--person-thre', '0.0', '--topk', '8'])
@@ -262,18 +269,37 @@ def test_server_answers_progressive_as_png():
         args, cfg, serve.load_weights(args, cfg), 'cpu')
     server = serve.make_server(args, infer, skeleton, eval_cfg)
     threading.Thread(target=server.serve_forever, daemon=True).start()
-    try:
-        answers = []
-        for b in (body, png):
-            req = urllib.request.Request(
-                f'http://localhost:{server.server_address[1]}/v1/poses',
-                data=b, method='POST')
-            with urllib.request.urlopen(req, timeout=60) as r:
-                assert r.status == 200
-                answers.append(json.loads(r.read()))
-    finally:
-        server.shutdown()
-        server.server_close()
+    yield f'http://localhost:{server.server_address[1]}/v1/poses'
+    server.shutdown()
+    server.server_close()
+
+
+def pillow_cmyk(rgb, subsampling=2, quality=90):
+    """Pillow's CMYK JPEG body (Adobe marker, transform 0) of RGB pixels."""
+    buf = io.BytesIO()
+    Image.fromarray(rgb).convert('CMYK').save(buf, 'JPEG', quality=quality,
+                                              subsampling=subsampling)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize('kind', ['progressive', 'arithmetic', 'cmyk'])
+def test_server_answers_progressive_as_png(tiny_server, kind):
+    """A progressive, an arithmetic-coded and a Pillow CMYK POST are
+    answered 200 (each was 400, 'undecodable image'), with the poses of
+    the PNG of the same pixels."""
+    img = chip_smoke.codec_image(96, 128, seed=9)
+    body = progressive(img, 90, '420')
+    if kind == 'arithmetic':
+        body = W.transcode(body)
+    elif kind == 'cmyk':
+        body = pillow_cmyk(img)
+    png = codec.encode_png(codec.decode(body))
+    answers = []
+    for b in (body, png):
+        req = urllib.request.Request(tiny_server, data=b, method='POST')
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            answers.append(json.loads(r.read()))
     for a in answers:
         del a['latency_ms']
     assert answers[0] == answers[1] and answers[0]['poses']
