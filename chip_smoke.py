@@ -5,8 +5,10 @@
 
 Builds the four CUDA kernels from `offsetguided_tpu_torch/csrc/` (one nvcc
 per source, in parallel), holds each against its plain PyTorch version at
-its path's shapes (grouping also on a capacity-128 crowd at top-k 96 and
-on the JAX package's adversarial and overflow inputs), and drives the
+its path's shapes (grouping also on a capacity-128 crowd at top-k 96, on
+the JAX package's adversarial and overflow inputs and on crowds with
+max_poses above the capacity, whose rows past the kept ones must be
+zero), and drives the
 port's entry points at full width (Hourglass-104, random seeded weights,
 batch 8, bf16):
 - serving at 640x640 with flip-test off and on, and concurrent requests
@@ -19,6 +21,14 @@ batch 8, bf16):
   upsampled (fused peaks) and stride-resolution decode, against the JAX
   package's recorded APs; and one fixed-height GT batch decoded through
   the kernels and through the plain versions on the card;
+- `[crowd oracle]`: the crowd-scale stress set (30 scenes of 50-70
+  people, built here by the port's generator and codec; its annotations
+  the JAX generator's bytes) through `cli.simulate --topk 80
+  --max-persons 70` at six capacity / max_poses rows of the JAX
+  package's recorded sweep (16/40, 32/40, 64/20, 64/40, 64/80, 256/80),
+  each AP within 0.002 of the JAX package's CPU value, the kernels'
+  records equal to the plain versions' at 16/40 and 256/80, and the
+  grouping kernel timed on the crowd limbs there;
 - `cli.train.main` at full width (512^2, batch 16, Adam, 12 steps) on the
   device-augmentation route, its checkpoint served, and on the host
   augmentation route with 4 loader processes and the validation pass;
@@ -58,6 +68,9 @@ batch 8, bf16):
   equal to `plain`); and `[dispatch]`, the serving path through the
   kernels' custom ops against their CUDA implementations called
   directly, in turns;
+- `[transforms]` on the card's host, which has no cv2: the JAX
+  package's optional `blur`, `jpeg_compression` and `ImageList` give the
+  pixels whose cv2 digests a CPU test pinned; `blur`'s host ms;
 - the port's JPEG / PNG codec built on the card's host (`[codec]`: pinned
   body and pixel digests, the committed progressive bodies' pixels,
   decode ms of a baseline and a progressive 480x640 body), and the serving front end and its
@@ -332,6 +345,12 @@ def make_crowd(n_limbs_valid, k=96, L=19):
 def crowd_cfg(capacity):
     return dict(topk=96, dist_max=40.0, use_scale=False, person_thre=0.05,
                 max_poses=96, capacity=capacity)
+
+
+# a dense crowd at capacity 16 with max_poses 40: every image fills its
+# rows, and the ranks from 16 on must come out zero
+CROWD_16_40 = dict(topk=48, dist_max=40.0, use_scale=False, person_thre=0.05,
+                   max_poses=40, capacity=16)
 
 
 def adversarial_cases():
@@ -676,6 +695,97 @@ def codec_cases():
     return out
 
 
+# The JAX package's optional transforms on seeded images, computed on the
+# card's host without cv2: name -> the first 16 hex digits of the SHA-256
+# of the output pixels, cv2's (cv2.GaussianBlur, the JAX package's
+# jpeg_compression, cv2.imread), pinned on the CPU by
+# tests/test_torch_port_transforms.py.
+BLUR_SIZES = ((1, 1), (5, 7), (480, 640))
+BLUR_SIGMAS = (0.3, 1.0, 2.0)
+TRANSFORM_DIGESTS = {
+    'blur 1x1x1 sigma 0.3': 'ee6bb86b44339392',
+    'blur 1x1x1 sigma 1.0': 'ee6bb86b44339392',
+    'blur 1x1x1 sigma 2.0': 'ee6bb86b44339392',
+    'blur 1x1x3 sigma 0.3': '101f73216ee82d30',
+    'blur 1x1x3 sigma 1.0': '101f73216ee82d30',
+    'blur 1x1x3 sigma 2.0': '101f73216ee82d30',
+    'blur 5x7x1 sigma 0.3': '7318fd16bd3d4033',
+    'blur 5x7x1 sigma 1.0': 'a99b653a5a85dec9',
+    'blur 5x7x1 sigma 2.0': 'a67172adf0e395ae',
+    'blur 5x7x3 sigma 0.3': '2200d51605279b65',
+    'blur 5x7x3 sigma 1.0': '72e3963d64c07485',
+    'blur 5x7x3 sigma 2.0': '0e48917e93c0d6ac',
+    'blur 480x640x1 sigma 0.3': 'a7a0fa96324ade43',
+    'blur 480x640x1 sigma 1.0': 'e22549239a6ec4e8',
+    'blur 480x640x1 sigma 2.0': '0ae8b4a0bc6ae6d9',
+    'blur 480x640x3 sigma 0.3': '9f8b7706caf4a0d6',
+    'blur 480x640x3 sigma 1.0': '029ad42065bddc41',
+    'blur 480x640x3 sigma 2.0': '48df01238e8333a0',
+    'jpeg_compression 480x640 seed 0': '2ea7b028f999c114',
+    'ImageList jpeg exif 6': '66c92037cf12a858',
+    'ImageList png': '1fb22acff0e974c5',
+}
+
+
+def exif_orientation_app1(orientation: int) -> bytes:
+    """A big-endian EXIF APP1 segment holding one Orientation tag."""
+    import struct
+    tiff = (b'MM' + struct.pack('>HIH', 42, 8, 1)
+            + struct.pack('>HHIHH', 0x0112, 3, 1, orientation, 0)
+            + struct.pack('>I', 0))
+    body = b'Exif\0\0' + tiff
+    return b'\xff\xe1' + struct.pack('>H', len(body) + 2) + body
+
+
+def transform_image(h: int, w: int, channels: int, seed: int) -> np.ndarray:
+    """Seeded uint8 noise, (h, w) for one channel, else (h, w, 3)."""
+    shape = (h, w) if channels == 1 else (h, w, 3)
+    return np.random.RandomState(seed).randint(0, 256, shape).astype(np.uint8)
+
+
+def transform_files(root: str):
+    """[(name, path)] of the files `ImageList` reads: a 4:2:0 JPEG (the
+    port's encoder) with EXIF orientation 6 and a PNG, 97x153 scenes."""
+    from offsetguided_tpu_torch.data import codec
+    jpeg = codec.encode_jpeg(codec_image(97, 153, seed=8), 90)
+    files = [('ImageList jpeg exif 6', os.path.join(root, 'o6.jpg'),
+              jpeg[:2] + exif_orientation_app1(6) + jpeg[2:]),
+             ('ImageList png', os.path.join(root, 'p.png'),
+              codec.encode_png(codec_image(97, 153, seed=9)))]
+    for _, path, body in files:
+        with open(path, 'wb') as f:
+            f.write(body)
+    return [(name, path) for name, path, _ in files]
+
+
+def transform_cases(root: str):
+    """[(name, pixels)] of the port's `blur` kernel on every size, channel
+    count and sigma of BLUR_SIZES x (1, 3) x BLUR_SIGMAS, its
+    `jpeg_compression` on a 480x640 scene (quality drawn from seed 0), and
+    `ImageList` on the files of `transform_files`."""
+    from offsetguided_tpu_torch.data import pipeline, pixels
+    from offsetguided_tpu_torch.data import transforms as T
+    out = []
+    for i, (h, w) in enumerate(BLUR_SIZES):
+        for c in (1, 3):
+            img = transform_image(h, w, c, seed=i)
+            for sigma in BLUR_SIGMAS:
+                out.append((f'blur {h}x{w}x{c} sigma {sigma}',
+                            pixels.gaussian_blur_u8(img, sigma)))
+    out.append(('jpeg_compression 480x640 seed 0', T.jpeg_compression(
+        codec_image(480, 640, seed=7), np.random.RandomState(0))))
+    names, paths = zip(*transform_files(root))
+    images = pipeline.ImageList(paths)
+    out += [(name, images.get(i)['image']) for i, name in enumerate(names)]
+    return out
+
+
+def pixel_digest(pixels: np.ndarray) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(pixels).tobytes()
+                          ).hexdigest()[:16]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -817,7 +927,9 @@ def compare_grouping(tag, x, skeleton, cfg, n_keypoints=J, order_free=False,
     the order of the masked-mean sum, so tied poses may swap places); where
     `exact`, poses and scores bit-equal place by place. Logs whether the
     outputs, and the pose sets, are bit-equal; fails the run otherwise.
-    Returns the largest error the check allowed."""
+    On both sides every row past the kept ones, the ranks from the
+    capacity on included, must be exactly zero. Returns the largest error
+    the check allowed."""
     import torch
     from offsetguided_tpu_torch.ops import grouping as plain
     from offsetguided_tpu_torch.ops.cuda import grouping
@@ -828,6 +940,16 @@ def compare_grouping(tag, x, skeleton, cfg, n_keypoints=J, order_free=False,
     torch.cuda.synchronize()
     if not torch.equal(c, rc):
         fail(f'grouping counts differ on {tag}: {c.tolist()} vs {rc.tolist()}')
+    n_rows = cfg.max_poses
+    past = (torch.arange(n_rows, device=c.device)[None]
+            >= c.clamp(max=n_rows)[:, None])
+    for side, (poses, scores) in (('kernel', (p, s)), ('plain', (rp, rs))):
+        if poses.shape[1] != n_rows or scores.shape[1] != n_rows:
+            fail(f'grouping {side} output has {poses.shape[1]} rows on {tag}, '
+                 f'not max_poses {n_rows}')
+        if bool(poses[past].any()) or bool(scores[past].any()):
+            fail(f'grouping {side} rows past the kept ones are not zero on '
+                 f'{tag} (max_poses {n_rows}, capacity {cfg.capacity})')
     p_err = float((p - rp).abs().max())
     s_err = float((s - rs).abs().max())
     in_place = p_err <= 1e-4
@@ -881,10 +1003,18 @@ def phase_grouping(dev, skeleton, records):
     worst = max(worst, compare_grouping('[grouping] crowd', crowd, skeleton,
                                         ccfg))
     for kind, (x, sk, j, kw) in adversarial_cases().items():
-        kw = dict(kw, max_poses=min(kw['max_poses'], kw['capacity']))
         worst = max(worst, compare_grouping(
-            f'[grouping] adversarial {kind}', torch.from_numpy(x).to(dev), sk,
-            DecoderConfig(**kw), j, order_free=True))
+            f'[grouping] adversarial {kind} (max_poses {kw["max_poses"]})',
+            torch.from_numpy(x).to(dev), sk, DecoderConfig(**kw), j,
+            order_free=True))
+    small = DecoderConfig(**CROWD_16_40)
+    worst = max(worst, compare_grouping(
+        '[grouping] crowd at capacity 16, max_poses 40',
+        torch.from_numpy(crowd_limbs(N_IMG, small.topk, seed=16)).to(dev),
+        skeleton, small))
+    log('[grouping] max_poses above the capacity (the overflow input at 64 / '
+        '96, crowd_40_64 at 64 / 96, a crowd at 16 / 40): counts identical, '
+        'pose sets equal, rows past the kept ones zero on both sides')
     ms = cuda_time(lambda: grouping.group_skeletons(packed, skeleton, cfg), 20)
     src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             'offsetguided_tpu_torch', 'csrc',
@@ -2918,6 +3048,179 @@ def phase_crowdpose_oracle(dev, root):
     return launches
 
 
+# The crowd-scale stress set (`data/synthetic.py::make_crowd_dataset`, 30
+# scenes of 640^2, 50-70 people each, seed 0) through `cli.simulate` at the
+# recorded crowd sweep's settings (BENCHMARKS.md, round 5): capacity /
+# max_poses -> the JAX package's AP, its `og-simulate` on the CPU (f32,
+# its XLA grouping) with the same flags on its own generator's set.
+CROWD_ORACLE_IMAGES = 30
+CROWD_ORACLE_ARGS = ['--topk', '80', '--max-persons', '70']
+CROWD_ORACLE_AP = {(16, 40): 0.2491, (32, 40): 0.3243, (64, 20): 0.2646,
+                   (64, 40): 0.3243, (64, 80): 0.3243, (256, 80): 0.3231}
+CROWD_ORACLE_EXACT = ((16, 40), (256, 80))     # kernel records == plain's
+# the first 16 hex digits of the SHA-256 of the set's annotations.json,
+# the JAX generator's file (tests/test_torch_port_synthetic.py)
+CROWD_ANN_DIGEST = 'c4985c351778727f'
+
+
+@contextlib.contextmanager
+def captured_records():
+    """[(image_id, records)] of every `poses_to_coco_results` call made
+    inside the block (`cli.simulate` makes one an image)."""
+    from offsetguided_tpu_torch.eval import harness
+    make, got = harness.poses_to_coco_results, []
+
+    def capture(poses, image_id):
+        out = make(poses, image_id)
+        got.append((image_id, out))
+        return out
+    harness.poses_to_coco_results = capture
+    try:
+        yield got
+    finally:
+        harness.poses_to_coco_results = make
+
+
+def crowd_oracle_limbs(dev, ann, n: int = N_IMG):
+    """The packed limbs (n, 19, 80, 13) of the first `n` crowd scenes'
+    encoded GT, as `cli.simulate` decodes them one at a time."""
+    import torch
+    from offsetguided_tpu_torch.config.defaults import (
+        DecoderConfig, EncoderConfig, SkeletonConfig)
+    from offsetguided_tpu_torch.data import transforms as T
+    from offsetguided_tpu_torch.data.coco import CocoJson
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.ops.encoder import encode_targets
+    skeleton, enc = SkeletonConfig(), EncoderConfig(max_persons=70)
+    coco = CocoJson(ann)
+    padded = np.zeros((n, enc.max_persons, J, 4), np.float32)
+    for i, img_id in enumerate(coco.image_ids(with_persons=True,
+                                              with_keypoints=True)[:n]):
+        anns = T.normalize_annotations(coco.anns_for_image(img_id),
+                                       skeleton.sigmas)[:enc.max_persons]
+        padded[i, :len(anns)] = anns       # 640^2 scenes: no rescale or pad
+    with torch.inference_mode():
+        t = encode_targets(torch.from_numpy(padded).to(dev), skeleton.sigmas,
+                           skeleton.skeleton, LONG_EDGE // STRIDE,
+                           LONG_EDGE // STRIDE, enc)
+        pp = PostProcessor(skeleton=skeleton, cfg=DecoderConfig(
+            topk=80, thre_hmp=0.1, dist_max=40.0, use_scale=False,
+            person_thre=0.1))
+        return pp.decode_packed_limbs({'hmp': [t.hmp], 'jomp': [t.jomp],
+                                       'omp': [t.omp], 'scmp': [None]}
+                                      ).contiguous(), pp.cfg
+
+
+def phase_crowd_oracle(dev, root, skeleton, records):
+    """The crowd set, built here with the port's generator and codec, then
+    `cli.simulate` at each capacity / max_poses of CROWD_ORACLE_AP
+    (upsampled decode, batch 1: peaks + grouping kernels), each within
+    0.002 of the JAX package's AP; at CROWD_ORACLE_EXACT the kernels'
+    records on every scene equal the plain versions' on the card. Then the
+    grouping kernel against plain on eight scenes' limbs at 16 / 40 and
+    256 / 80, timed."""
+    import hashlib
+    import torch
+    from offsetguided_tpu_torch.cli import simulate
+    from offsetguided_tpu_torch.data import synthetic
+    from offsetguided_tpu_torch.ops import grouping as plain
+    from offsetguided_tpu_torch.ops.cuda import grouping
+
+    t0 = time.perf_counter()
+    img_dir, ann = synthetic.make_crowd_dataset(
+        os.path.join(root, 'crowd'), n_images=CROWD_ORACLE_IMAGES, seed=0)
+    dt = time.perf_counter() - t0
+    with open(ann, 'rb') as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    n_jpeg = len([f for f in os.listdir(img_dir) if f.endswith('.jpg')])
+    with open(ann) as f:
+        n_people = len(json.load(f)['annotations'])
+    log(f'[crowd oracle] make_crowd_dataset: {n_jpeg} painted JPEGs, '
+        f'{n_people} people in {dt:.1f} s on this host; annotations digest '
+        f'{digest} (the JAX generator\'s {CROWD_ANN_DIGEST})')
+    if digest != CROWD_ANN_DIGEST or n_jpeg != CROWD_ORACLE_IMAGES:
+        fail('[crowd oracle] the crowd set differs from the JAX generator\'s')
+    launches = {}
+    for (cap, mp), want in CROWD_ORACLE_AP.items():
+        argv = (['--annotation-file', ann] + CROWD_ORACLE_ARGS
+                + ['--capacity', str(cap), '--max-poses', str(mp)])
+        path = f'crowd_oracle_{cap}_{mp}'
+        reset_launches()
+        t0 = time.perf_counter()
+        with captured_records() as ours:
+            stats = simulate.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[path] = read_launches()
+        log(f'[crowd oracle] capacity {cap}, max_poses {mp}: AP '
+            f'{stats["AP"]:.4f} (JAX CPU f32 {want:.4f}), AR '
+            f'{stats["AR"]:.4f}, {dt:.1f} s, kernel launches '
+            f'{launches[path]}')
+        check_launches(path, launches[path], ('peaks', 'grouping'))
+        if not abs(stats['AP'] - want) <= 0.002:
+            fail(f'crowd oracle {cap}/{mp}: AP {stats["AP"]:.4f} is not '
+                 f'within 0.002 of {want}')
+        if (cap, mp) in CROWD_ORACLE_EXACT:
+            with plain_kernels(), captured_records() as ref:
+                simulate.main(argv)
+            if ours != ref:
+                bad = [i for (i, a), (_, b) in zip(ours, ref) if a != b]
+                fail(f'crowd oracle {cap}/{mp}: kernel and plain records '
+                     f'differ on images {bad}')
+            log(f'[crowd oracle] capacity {cap}, max_poses {mp}: kernel and '
+                f'plain records identical on all {len(ours)} scenes '
+                f'({sum(len(r) for _, r in ours)} records)')
+
+    packed, cfg = crowd_oracle_limbs(dev, ann)
+    rec = dict(shape=list(packed.shape))
+    r = records['grouping']
+    for cap, mp in CROWD_ORACLE_EXACT:
+        c = dataclasses.replace(cfg, capacity=cap, max_poses=mp)
+        r['max_abs_err'] = max(r['max_abs_err'], compare_grouping(
+            f'[crowd oracle] grouping capacity {cap}, max_poses {mp}', packed,
+            skeleton, c, exact=True))
+        rec[f'ms_{cap}_{mp}'] = cuda_time(lambda: grouping.group_skeletons(
+            packed, skeleton, c, capacity=cap), 20)
+        rec[f'plain_ms_{cap}_{mp}'] = cuda_time(lambda: plain.group_skeletons(
+            packed, skeleton, c, J, cap), 3, warmup=1)
+    r['crowd_oracle'] = rec
+    log(f'[crowd oracle] grouping on {tuple(packed.shape)} crowd limbs: '
+        + ', '.join(f'{cap} / {mp}: kernel {rec[f"ms_{cap}_{mp}"]:.4f} ms, '
+                    f'plain {rec[f"plain_ms_{cap}_{mp}"]:.4f} ms'
+                    for cap, mp in CROWD_ORACLE_EXACT)
+        + f'; {card_line()}')
+    return launches
+
+
+def phase_transforms():
+    """The JAX package's optional transforms on this host (no cv2 here):
+    `blur`, `jpeg_compression` and `ImageList` give cv2's pixels, as the
+    digests pinned on the CPU say; the host ms of `blur` at 480x640."""
+    from offsetguided_tpu_torch.data import pixels
+    with tempfile.TemporaryDirectory() as root:
+        cases = transform_cases(root)
+    for name, px in cases:
+        if pixel_digest(px) != TRANSFORM_DIGESTS[name]:
+            fail(f'[transforms] {name}: digest {pixel_digest(px)}, pinned '
+                 f'(cv2) {TRANSFORM_DIGESTS[name]}')
+    log(f'[transforms] {len(cases)} outputs (blur at '
+        f'{", ".join(f"{h}x{w}" for h, w in BLUR_SIZES)}, 1 and 3 channels, '
+        f'sigma {", ".join(map(str, BLUR_SIGMAS))}; jpeg_compression; '
+        f'ImageList JPEG with EXIF orientation 6 and PNG): equal to cv2\'s '
+        f'pinned digests')
+    for c in (3, 1):
+        img = transform_image(480, 640, c, seed=2)
+        for sigma in BLUR_SIGMAS:
+            ts = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                pixels.gaussian_blur_u8(img, sigma)
+                ts.append(time.perf_counter() - t0)
+            log(f'[transforms] blur 480x640x{c} sigma {sigma}: median '
+                f'{np.median(ts) * 1e3:.2f} ms, min {min(ts) * 1e3:.2f} ms on '
+                f'one host thread (numpy)')
+
+
 def phase_crowdpose_evaluate(dev, root):
     """`cli.evaluate --dataset crowdpose` at full width on 16 seeded .npy
     CrowdPose scenes (crowdIndex in each band), batch 8: `--fixed-height
@@ -3628,6 +3931,7 @@ def main() -> int:
     records = {}
     timed(phase_build)
     timed(phase_codec)
+    timed(phase_transforms)
     timed(phase_peaks, dev, skeleton, records)
     timed(phase_grouping, dev, skeleton, records)
     launches, serve, images = timed(phase_full_width, dev)
@@ -3654,6 +3958,8 @@ def main() -> int:
         launches.update(timed(phase_crowdpose_evaluate, dev, root))
         launches.update(timed(phase_oracle, dev, root))
         launches.update(timed(phase_crowdpose_oracle, dev, root))
+        launches.update(timed(phase_crowd_oracle, dev, root, skeleton,
+                              records))
         torch.cuda.empty_cache()
         launches.update(timed(phase_train, dev, root, skeleton, records))
         timed(phase_train_host, dev, root)

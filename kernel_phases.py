@@ -25,11 +25,13 @@ its line) adds thread 0's `clock64()` cycles since the last marker to a
 per-phase device counter, summed over the CTAs. It runs on the serving
 path's packed limbs (8, 19, 32, 13) at capacity 64 (the full-width model,
 seeded weights and images as `chip_smoke.py` serves them), the 1-5-person
-scenes, and a capacity-128 crowd at top-k 96; each phase is reported in
-cycles and microseconds per image, summed over the passes. `--baseline DIR`
-adds an older `grouping.cu` (e.g. the parent checkout's `csrc/`), timed in
-turns with this one (baseline, full, full, baseline) and split the same
-way, on the inputs at capacity 64 only.
+scenes, a capacity-128 crowd at top-k 96, and eight crowd-set scenes'
+encoded GT at top-k 80 (capacity 64, max_poses 40); each phase is reported
+in cycles and microseconds per image, summed over the passes.
+`--baseline DIR` adds an older `grouping.cu` (e.g. the parent checkout's
+`csrc/`), timed in turns with this one (baseline, full, full, baseline)
+and split the same way, on the inputs at capacity 64 only, where the two
+outputs are also compared bit for bit.
 NMS + top-k runs on the stride-resolution route's (136, 160, 160) maps (the
 full-width model's heatmaps, seeded as above), person scenes and random^4,
 at k=32: a two-launch source (the kernel's first design) also as a
@@ -56,6 +58,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 from functools import partial
 from pathlib import Path
 
@@ -360,12 +363,16 @@ def grouping_inputs(dev):
     """{name: (packed limbs, DecoderConfig)}: the serving path's limbs (the
     full-width model with seeded weights on `chip_smoke.py`'s seeded
     640x640 batch), the 1-5-person scenes of `chip_smoke.py`'s
-    `[grouping]`, and its capacity-128 crowd."""
+    `[grouping]`, its capacity-128 crowd, and the encoded GT of the first
+    eight scenes of the crowd set (`[crowd oracle]`'s limbs) at the default
+    capacity 64 and max_poses 40."""
     import numpy as np
     import torch
-    from chip_smoke import LONG_EDGE, crowd_case, person_scene_limbs
+    from chip_smoke import (LONG_EDGE, crowd_case, crowd_oracle_limbs,
+                            person_scene_limbs)
     from offsetguided_tpu_torch.cli.serve import build_infer, cli
     from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
+    from offsetguided_tpu_torch.data import synthetic
     from offsetguided_tpu_torch.ops.image import normalize_images
 
     infer, _, _, model = build_infer(cli([]), device=dev, seed=0)
@@ -377,8 +384,13 @@ def grouping_inputs(dev):
     del model
     torch.cuda.empty_cache()
     persons, cfg = person_scene_limbs(dev, tuple(COCO_PERSON_SKELETON))
+    with tempfile.TemporaryDirectory() as root:
+        ann = synthetic.write_annotations(root, synthetic.crowd_annotations(
+            N_IMG, seed=0))
+        crowd_scenes = crowd_oracle_limbs(dev, ann)
     return {'main_path': (packed.contiguous(), pp.cfg),
-            'persons': (persons, cfg), 'crowd_128': crowd_case(dev)}
+            'persons': (persons, cfg), 'crowd_128': crowd_case(dev),
+            'crowd_scenes': crowd_scenes}
 
 
 def grouping_phases(lib, call, n_img: int, names, reps: int = 10):
@@ -406,7 +418,8 @@ def grouping_phases(lib, call, n_img: int, names, reps: int = 10):
 
 
 def run_grouping(libs, dev, csrc: Path, baseline):
-    from chip_smoke import cuda_time, grouping_barriers, launch_split
+    import torch
+    from chip_smoke import bits, cuda_time, grouping_barriers, launch_split
     from offsetguided_tpu_torch.config import COCO_PERSON_SKELETON
     from offsetguided_tpu_torch.ops.cuda import _build, grouping
     sk = tuple(COCO_PERSON_SKELETON)
@@ -422,8 +435,10 @@ def run_grouping(libs, dev, csrc: Path, baseline):
                      capacity=cfg.capacity)
         turns = ('baseline', 'full', 'full', 'baseline') if old_too else (
             'full', 'full')
+        outs = {}
         for turn in turns:
             _build._libs['grouping'] = libs['grouping', turn]
+            outs.setdefault(turn, [bits(t) for t in fn()])
             total = cuda_time(fn, 20, warmup=3)
             dev_ms = launch_split(fn, parts=('group',))['group_ms']
             results.append(dict(kernel='grouping', input=kind,
@@ -433,6 +448,14 @@ def run_grouping(libs, dev, csrc: Path, baseline):
                   f'{cfg.capacity} {turn}: {total:.4f} ms; device '
                   + ('not measured' if dev_ms is None else f'{dev_ms:.4f} ms'),
                   flush=True)
+        if old_too:
+            same = all(torch.equal(a, b) for a, b in zip(outs['baseline'],
+                                                         outs['full']))
+            results.append(dict(kernel='grouping', input=kind,
+                                variant='full_vs_baseline', bit_equal=same))
+            print(f'[grouping] {kind} capacity {cfg.capacity} max_poses '
+                  f'{cfg.max_poses}: poses, scores and counts bit-equal to '
+                  f'the baseline\'s: {same}', flush=True)
         for var in names if old_too else ('phased',):
             lib = libs['grouping', var]
             _build._libs['grouping'] = lib

@@ -7,6 +7,7 @@ from .coco import (
     HFLIP,
     heatmap_hflip,
     offset_hflip,
+    skeleton_from_arrays,
 )
 from .crowdpose import (
     CROWDPOSE_HFLIP,
@@ -31,7 +32,7 @@ from .defaults import (
 __all__ = [
     'COCO_KEYPOINTS', 'COCO_PERSON_SIGMAS', 'COCO_PERSON_SKELETON',
     'DATA_MEAN', 'DATA_STD', 'HFLIP',
-    'heatmap_hflip', 'offset_hflip',
+    'heatmap_hflip', 'offset_hflip', 'skeleton_from_arrays',
     'CROWDPOSE_HFLIP', 'CROWDPOSE_KEYPOINTS', 'CROWDPOSE_PERSON_SKELETON',
     'CROWDPOSE_SIGMAS', 'crowdpose_hflip_indices', 'crowdpose_offset_hflip',
     'AugmentationConfig', 'DecoderConfig', 'EncoderConfig', 'EvalConfig',

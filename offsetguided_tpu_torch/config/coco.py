@@ -6,6 +6,8 @@ are the public COCO keypoint-challenge constants.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 # ImageNet normalization used by the pretrained backbones
@@ -153,3 +155,9 @@ def offset_hflip(keypoints=COCO_KEYPOINTS, skeleton=COCO_PERSON_SKELETON,
     return (np.asarray(flip_indices, dtype=np.int32),
             np.asarray(reserve_indices, dtype=np.int32))
 
+
+def skeleton_from_arrays(skeleton) -> Tuple[np.ndarray, np.ndarray]:
+    """Split a skeleton into (from_joints, to_joints) int32 arrays for
+    gathers."""
+    sk = np.asarray(skeleton, dtype=np.int32)
+    return sk[:, 0], sk[:, 1]

@@ -454,6 +454,15 @@ group_kernel(const float* __restrict__ packed, const int* __restrict__ skel,
     }
     if (lane == 0) scores[(size_t)n * p.max_poses + rank] = km ? s.score[m] : 0.0f;
   }
+  // ranks from M to max_poses hold no row: zeros with score 0, as the
+  // TPU kernel's selection rows past the kept ones
+  if (p.max_poses > M) {
+    float* tail = poses + ((size_t)n * p.max_poses + M) * J * 6;
+    for (int e = t; e < (p.max_poses - M) * J * 6; e += blockDim.x)
+      tail[e] = 0.0f;
+    for (int r = M + t; r < p.max_poses; r += blockDim.x)
+      scores[(size_t)n * p.max_poses + r] = 0.0f;
+  }
   if (warp == 0) {
     int c = 0;
     for (int o0 = 0; o0 < M; o0 += 32)
@@ -474,7 +483,8 @@ long long og_group_smem_bytes(int K, int J, int M, int L) {
 
 // packed (N, L, K, 13) f32, skel (L, 2) i32 on the device ->
 // poses (N, max_poses, J, 6) f32, scores (N, max_poses) f32, counts (N) i32.
-// Requires max_poses <= M and smem_bytes(K, J, M, L) <= 227 KB.
+// Requires smem_bytes(K, J, M, L) <= 227 KB; max_poses may pass M (the
+// ranks from M on are zeros).
 int og_group_skeletons(const float* packed, const int* skel, int N, int L,
                        int K, int J, int M, int max_poses, int settle,
                        int sort_dim, int use_scale, float dist_max,

@@ -2,10 +2,11 @@
 C++ compiler by `ops/cuda/_build.py` on first use (a failed build raises).
 
 The port's counterpart of the JAX package's `data/native.py`, with the
-same two entry points: `rle_string_to_mask` decodes a compressed counts
-string into a row-major uint8 mask (None where the C decoder refuses the
-string, so the caller falls back to the Python decoder as the JAX package
-does), `rle_encode_mask` encodes a mask into column-major run lengths."""
+same entry points: `available` says whether the C decoder loads,
+`rle_string_to_mask` decodes a compressed counts string into a row-major
+uint8 mask (None where the C decoder refuses the string, so the caller
+falls back to the Python decoder as the JAX package does),
+`rle_encode_mask` encodes a mask into column-major run lengths."""
 from __future__ import annotations
 
 import ctypes
@@ -17,6 +18,13 @@ import numpy as np
 def _lib():
     from ..ops.cuda import _build
     return _build.library('rle')
+
+
+def available() -> bool:
+    """Whether the C decoder loads: True once it is built and loaded. A
+    failed build raises, as every call of the decoder does, instead of
+    answering False."""
+    return _lib() is not None
 
 
 def rle_string_to_mask(counts: str, h: int, w: int) -> Optional[np.ndarray]:

@@ -29,6 +29,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ..config.defaults import AugmentationConfig, SkeletonConfig
+from . import codec
 from . import transforms as T
 from .coco import CocoJson, build_miss_masks, read_image
 
@@ -228,6 +229,27 @@ class CocoKeypoints:
         if self.device_aug:
             return self._get_device_aug(image, anns, meta, mask_miss, rng)
         return self._get_host(image, anns, meta, mask_miss, rng)
+
+
+class ImageList:
+    """Inference-only dataset over a list of image paths. `get(i)` reads
+    image i as cv2.imread does (JPEG or PNG through the port's codec, EXIF
+    orientation applied), in RGB, and raises IOError where the file is
+    missing or not an image the codec reads."""
+
+    def __init__(self, image_paths):
+        self.image_paths = list(image_paths)
+
+    def __len__(self):
+        return len(self.image_paths)
+
+    def get(self, index: int) -> Dict:
+        path = self.image_paths[index]
+        image = codec.imread(path)
+        if image is None:
+            raise IOError(f'missing image: {path}')
+        return {'image': image,
+                'meta': {'dataset_index': index, 'file_name': path}}
 
 
 def _batch_rng(seed: int, epoch: int, batch_index: int) -> np.random.RandomState:

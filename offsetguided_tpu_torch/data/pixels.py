@@ -37,6 +37,17 @@ value (pinned by fuzzing against it, `tests/test_torch_port_host_aug.py`):
   32-pixel vector blocks and rounded in its tail. Both hold over every one
   of their 2^24 and 180 * 2^16 inputs, in blocks and in tails.
 
+- `gaussian_blur_u8`: `cv2.GaussianBlur(src, (0, 0), sigma)` for uint8,
+  OpenCV's bit-exact fixed-point path (IPP is not used for it). The
+  kernel has cvRound(6 sigma + 1) | 1 taps; its double weights
+  exp(-x^2 / (2 sigma^2)) / sum are scaled to 8 fraction bits with the
+  rounding error carried from tap to tap (round half even), the centre
+  tap taking what is left of 256. Rows and then columns are filtered in
+  exact integer arithmetic (taps outside the image reflected about the
+  edge pixel, BORDER_REFLECT_101), and the 16-fraction-bit sum is rounded
+  half up. An axis of length 1 is not filtered. Pinned by fuzzing
+  against cv2 (`tests/test_torch_port_transforms.py`).
+
 `warp_affine_u8_native` and `resize_cubic_u8_native` compute
 `warp_affine_u8` and `resize_cubic_u8` in C++ with the same operation
 order (`csrc/host_warp.cpp`, called through ctypes, which releases the
@@ -287,3 +298,75 @@ def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
     rgb = np.where(blocked, np.trunc(rgb), np.rint(rgb))
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
+
+def gaussian_ksize_u8(sigma: float) -> int:
+    """The taps OpenCV gives an 8-bit Gaussian of `sigma`:
+    cvRound(sigma * 3 * 2 + 1) | 1 (cvRound rounds half to even)."""
+    return int(np.rint(sigma * 3 * 2 + 1)) | 1
+
+
+def gaussian_kernel_q8(n: int, sigma: float) -> np.ndarray:
+    """OpenCV's `n`-tap fixed-point Gaussian for 8-bit images: int64
+    weights in units of 2^-8 summing to 256 (`getGaussianKernelBitExact`
+    then `getGaussianKernelFixedPoint_ED`, in double precision)."""
+    scale2 = -0.125 / (sigma * sigma)      # x counts half-taps
+    half = (n - 1) // 2
+    values, total = [], 0.0
+    for x in range(1 - n, 1 - n + 2 * half, 2):
+        values.append(float(np.exp(float(x * x) * scale2)))
+        total += values[-1]
+    mul = 1.0 / (total * 2.0 + 1.0)
+    out = np.zeros(n, np.int64)
+    err = 0.0
+    for i, v in enumerate(values):
+        adj = v * mul * 256.0 + err
+        q = int(np.rint(adj))
+        err = adj - q
+        out[i] = out[n - 1 - i] = q
+    out[half] = 256 - 2 * int(out[:half].sum())
+    return out
+
+
+def reflect101(n_taps: int, length: int) -> np.ndarray:
+    """Source index of each of the `length + n_taps - 1` positions a
+    centred `n_taps` filter reads, reflected about the edge pixels
+    (BORDER_REFLECT_101, reflected again until inside)."""
+    p = np.arange(-(n_taps // 2), length + n_taps // 2)
+    if length == 1:
+        return np.zeros_like(p)
+    period = 2 * (length - 1)
+    p = np.abs(p) % period
+    return np.where(p < length, p, period - p)
+
+
+def _smooth_axis(x: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
+    """sum_i k[i] x[reflect(j + i - r)] along `axis`, in int32, the
+    symmetric taps paired."""
+    n, length = len(k), x.shape[axis]
+    if length == 1:
+        return x << 8
+    pad = np.take(x, reflect101(n, length), axis=axis)
+
+    def at(i):
+        return pad[(slice(None),) * axis + (slice(i, i + length),)]
+    r = n // 2
+    acc = at(r) * np.int32(k[r])
+    for i in range(r):
+        acc += (at(i) + at(n - 1 - i)) * np.int32(k[i])
+    return acc
+
+
+def gaussian_blur_u8(src: np.ndarray, sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(src, (0, 0), sigma) for uint8 (H, W) or (H, W, C)
+    `src`, sigma > 0; (H, W, 1) gives (H, W), as cv2 does."""
+    src = np.asarray(src)
+    if src.dtype != np.uint8 or src.ndim not in (2, 3) or src.size == 0:
+        raise ValueError(f'gaussian_blur_u8 takes a non-empty uint8 (H, W) '
+                         f'or (H, W, C) image; got {src.dtype} {src.shape}')
+    if not sigma > 0:
+        raise ValueError(f'gaussian_blur_u8 needs sigma > 0; got {sigma}')
+    k = gaussian_kernel_q8(gaussian_ksize_u8(sigma), sigma)
+    x = src.reshape(src.shape[0], src.shape[1], -1).astype(np.int32)
+    acc = _smooth_axis(_smooth_axis(x, k, 1), k, 0)
+    out = ((acc + (1 << 15)) >> 16).astype(np.uint8)
+    return out[..., 0] if src.ndim == 2 or src.shape[2] == 1 else out

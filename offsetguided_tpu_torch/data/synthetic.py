@@ -1,19 +1,29 @@
-"""Hard synthetic COCO-style keypoint benchmark.
+"""Synthetic COCO-style keypoint benchmarks: the hard set and the crowd set.
 
-A copy of the JAX package's `data/synthetic.py::make_hard_dataset`, drawing
-the same random stream, so a seed gives the same scenes and the same
-annotations: COCO-like scale statistics, overlapping pairs, border-truncated
-people, occlusion-marked keypoints and crowd regions. Feeding its GT through
-encode -> decode (`cli/simulate.py`) measures the AP ceiling of the
-encoding under realistic difficulty.
+Copies of the JAX package's `data/synthetic.py::make_hard_dataset` and
+`make_crowd_dataset`, drawing the same random stream, so a seed gives the
+same scenes and the same annotations, written to the same JSON bytes.
+The hard set has COCO-like scale statistics, overlapping pairs,
+border-truncated people, occlusion-marked keypoints and crowd regions;
+feeding its GT through encode -> decode (`cli/simulate.py`) measures the
+AP ceiling of the encoding under realistic difficulty. The crowd set is
+the stress test of the decoder's fixed capacities: 640x640 scenes of
+50-70 people each at 40-150 px, heavily overlapping.
 
-`hard_annotations` builds the COCO annotation dict; `make_hard_dataset`
-also writes the images, as `.npy` (uint8 RGB, unpainted) or as JPEG / PNG
-through the port's codec (`data/codec.py`), with the figures painted as
-the JAX version paints them. The annotations are the JAX package's; the
-painted pixels are not its pixels: the limbs are the numpy 3-pixel lines
-of `data/draw.py` (cv2.line at thickness 2 in the JAX package), the
-joints the same filled circles, and the JPEG is the codec's.
+`hard_annotations` / `crowd_annotations` build the COCO annotation dict;
+`make_hard_dataset` / `make_crowd_dataset` also write the images, as
+`.npy` (uint8, unpainted) or as JPEG / PNG through the port's codec
+(`data/codec.py`), with the figures painted as the JAX version paints
+them. The annotations are the JAX package's; the painted pixels are not
+its pixels: the limbs are the numpy 3-pixel lines of `data/draw.py`
+(cv2.line at thickness 2 in the JAX package), the joints the same filled
+circles, and the JPEG is the codec's.
+
+    python -m offsetguided_tpu_torch.data.synthetic OUT [--n-images N]
+        [--seed S] [--crowd MIN,MAX]
+
+writes `OUT/images/*.jpg` and `OUT/annotations.json` (the crowd set with
+`--crowd`) and prints the two paths, as the JAX generator does.
 """
 from __future__ import annotations
 
@@ -80,12 +90,41 @@ def paint_figures(img, kps):
     return img
 
 
-def _box_record(ann_id, img_id, bx, by, bw, bh, **fields) -> Dict:
-    return dict({'id': ann_id, 'image_id': img_id, 'category_id': 1,
-                 'bbox': [float(bx), float(by), float(bw), float(bh)],
-                 'segmentation': [[float(bx), float(by), float(bx + bw),
-                                   float(by), float(bx + bw), float(by + bh),
-                                   float(bx), float(by + bh)]]}, **fields)
+def _record(ann_id, img_id, keypoints, num_keypoints, iscrowd,
+            bx, by, bw, bh, area) -> Dict:
+    """One COCO annotation, its keys in the JAX generator's order."""
+    return {'id': ann_id, 'image_id': img_id, 'category_id': 1,
+            'keypoints': keypoints, 'num_keypoints': num_keypoints,
+            'iscrowd': iscrowd,
+            'bbox': [float(bx), float(by), float(bw), float(bh)],
+            'area': area,
+            'segmentation': [[float(bx), float(by), float(bx + bw),
+                              float(by), float(bx + bw), float(by + bh),
+                              float(bx), float(by + bh)]]}
+
+
+def _person_record(ann_id, img_id, kps) -> Optional[Dict]:
+    """The annotation of a (17, 3) person, its box 3 px around the visible
+    keypoints; None for a person with fewer than 3 of them."""
+    n_vis = int((kps[:, 2] > 0).sum())
+    if n_vis < 3:
+        return None
+    pos = kps[kps[:, 2] > 0]
+    bx, by = pos[:, 0].min() - 3, pos[:, 1].min() - 3
+    bw = pos[:, 0].max() - pos[:, 0].min() + 6
+    bh = pos[:, 1].max() - pos[:, 1].min() + 6
+    return _record(ann_id, img_id, kps.reshape(-1).tolist(), n_vis, 0,
+                   bx, by, bw, bh, float(bw * bh * 0.55))
+
+
+def _coco(images: List[Dict], annotations: List[Dict]) -> Dict:
+    """The dataset dict with the standard COCO category record (keypoint
+    names + 1-based skeleton)."""
+    return {'images': images, 'annotations': annotations,
+            'categories': [{
+                'id': 1, 'name': 'person', 'keypoints': list(COCO_KEYPOINTS),
+                'skeleton': [[a + 1, b + 1]
+                             for a, b in COCO_PERSON_SKELETON]}]}
 
 
 def hard_annotations(n_images: int = 100, seed: int = 0, ext: str = 'jpg',
@@ -125,17 +164,10 @@ def hard_annotations(n_images: int = 100, seed: int = 0, ext: str = 'jpg',
 
         kept = []
         for kps in persons:
-            n_vis = int((kps[:, 2] > 0).sum())
-            if n_vis < 3:
+            rec = _person_record(ann_id, img_id, kps)
+            if rec is None:
                 continue
-            pos = kps[kps[:, 2] > 0]
-            bx, by = pos[:, 0].min() - 3, pos[:, 1].min() - 3
-            bw = pos[:, 0].max() - pos[:, 0].min() + 6
-            bh = pos[:, 1].max() - pos[:, 1].min() + 6
-            annotations.append(_box_record(
-                ann_id, img_id, bx, by, bw, bh,
-                keypoints=kps.reshape(-1).tolist(), num_keypoints=n_vis,
-                iscrowd=0, area=float(bw * bh * 0.55)))
+            annotations.append(rec)
             ann_id += 1
             kept.append(kps)
 
@@ -145,9 +177,8 @@ def hard_annotations(n_images: int = 100, seed: int = 0, ext: str = 'jpg',
             cw, ch = rng.uniform(60, 200), rng.uniform(60, 200)
             cx = rng.uniform(0, max(w - cw, 1))
             cy = rng.uniform(0, max(h - ch, 1))
-            annotations.append(_box_record(
-                ann_id, img_id, cx, cy, cw, ch, keypoints=[0.0] * 51,
-                num_keypoints=0, iscrowd=1, area=float(cw * ch)))
+            annotations.append(_record(ann_id, img_id, [0.0] * 51, 0, 1,
+                                       cx, cy, cw, ch, float(cw * ch)))
             ann_id += 1
 
         if on_image is not None:
@@ -155,12 +186,38 @@ def hard_annotations(n_images: int = 100, seed: int = 0, ext: str = 'jpg',
         images.append({'id': img_id, 'file_name': f'{img_id:06d}.{ext}',
                        'height': int(h), 'width': int(w)})
 
-    # standard COCO category record (keypoint names + 1-based skeleton)
-    return {'images': images, 'annotations': annotations,
-            'categories': [{
-                'id': 1, 'name': 'person', 'keypoints': list(COCO_KEYPOINTS),
-                'skeleton': [[a + 1, b + 1]
-                             for a, b in COCO_PERSON_SKELETON]}]}
+    return _coco(images, annotations)
+
+
+def crowd_annotations(n_images: int = 30, seed: int = 0,
+                      n_persons: Tuple[int, int] = (50, 70),
+                      ext: str = 'jpg',
+                      on_image: Optional[Callable] = None) -> Dict:
+    """The crowd set's COCO annotation dict: `n_persons` (inclusive range)
+    people drawn for each 640x640 image at log-uniform 40-150 px, those
+    with fewer than 3 visible keypoints left out. `on_image` as in
+    `hard_annotations`."""
+    rng = np.random.RandomState(seed)
+    images, annotations = [], []
+    ann_id = 1
+    for img_id in range(1, n_images + 1):
+        h = w = 640
+        img = (rng.rand(h, w, 3) * 60 + 70).astype(np.uint8)
+        kept = []
+        for _ in range(rng.randint(n_persons[0], n_persons[1] + 1)):
+            box = float(np.exp(rng.uniform(np.log(40.0), np.log(150.0))))
+            kps = _make_person(rng, h, w, box)
+            rec = _person_record(ann_id, img_id, kps)
+            if rec is None:
+                continue
+            annotations.append(rec)
+            ann_id += 1
+            kept.append(kps)
+        if on_image is not None:
+            on_image(img_id, img, kept)
+        images.append({'id': img_id, 'file_name': f'{img_id:06d}.{ext}',
+                       'height': int(h), 'width': int(w)})
+    return _coco(images, annotations)
 
 
 def write_annotations(root: str, dataset: Dict) -> str:
@@ -171,15 +228,12 @@ def write_annotations(root: str, dataset: Dict) -> str:
     return ann_file
 
 
-def make_hard_dataset(root: str, n_images: int = 100, seed: int = 0,
-                      paint: bool = True, ext: str = 'jpg'
-                      ) -> Tuple[str, str]:
-    """Write the benchmark's images and annotations under `root`; returns
-    (image_dir, annotation_file). `ext='npy'` stores the unpainted uint8
-    RGB arrays; `'jpg'` (quality 95, 4:2:0) and `'png'` go through the
-    codec, painted unless `paint` is False. The arrays are in cv2's BGR
-    order, as in the JAX package, so the RGB written is their reverse."""
-    img_dir = os.path.join(root, 'images')
+def _image_writer(img_dir: str, ext: str, paint: bool) -> Callable:
+    """The `on_image` that writes each scene under `img_dir`: `.npy` stores
+    the unpainted uint8 array, `.jpg` (quality 95, 4:2:0) and `.png` go
+    through the codec, painted unless `paint` is False. The arrays are in
+    cv2's BGR order, as in the JAX package, so the RGB written is their
+    reverse."""
     os.makedirs(img_dir, exist_ok=True)
 
     def save(img_id, img, persons):
@@ -191,6 +245,55 @@ def make_hard_dataset(root: str, n_images: int = 100, seed: int = 0,
             for kps in persons:
                 paint_figures(img, kps)
         codec.imwrite(path, img[:, :, ::-1])
+    return save
 
-    ds = hard_annotations(n_images, seed, ext, on_image=save)
+
+def make_hard_dataset(root: str, n_images: int = 100, seed: int = 0,
+                      paint: bool = True, ext: str = 'jpg'
+                      ) -> Tuple[str, str]:
+    """Write the benchmark's images and annotations under `root`; returns
+    (image_dir, annotation_file). `ext` and `paint` as `_image_writer`
+    takes them."""
+    img_dir = os.path.join(root, 'images')
+    ds = hard_annotations(n_images, seed, ext,
+                          on_image=_image_writer(img_dir, ext, paint))
     return img_dir, write_annotations(root, ds)
+
+
+def make_crowd_dataset(root: str, n_images: int = 30, seed: int = 0,
+                       n_persons: Tuple[int, int] = (50, 70),
+                       paint: bool = True, ext: str = 'jpg'
+                       ) -> Tuple[str, str]:
+    """Write the crowd set's images and annotations under `root`; returns
+    (image_dir, annotation_file)."""
+    img_dir = os.path.join(root, 'images')
+    ds = crowd_annotations(n_images, seed, n_persons, ext,
+                           on_image=_image_writer(img_dir, ext, paint))
+    return img_dir, write_annotations(root, ds)
+
+
+def main(argv=None) -> Tuple[str, str]:
+    """The generator's command line; prints and returns the image directory
+    and the annotation file."""
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument('out_dir')
+    p.add_argument('--n-images', type=int, default=100)
+    p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--crowd', default=None,
+                   help='MIN,MAX persons per image: generate the crowd '
+                        'stress set instead of the hard benchmark')
+    a = p.parse_args(argv)
+    if a.crowd:
+        lo, hi = (int(x) for x in a.crowd.split(','))
+        img_dir, ann_file = make_crowd_dataset(a.out_dir, a.n_images, a.seed,
+                                               n_persons=(lo, hi))
+    else:
+        img_dir, ann_file = make_hard_dataset(a.out_dir, a.n_images, a.seed)
+    print(img_dir)
+    print(ann_file)
+    return img_dir, ann_file
+
+
+if __name__ == '__main__':
+    main()

@@ -8,7 +8,12 @@ matrix center2center @ zero2center @ flip @ scale @ rotate @ center2zero.
 On the device-augmentation route the pixel work runs on the device
 (`ops/augment.py`); on the host route `warp_affine`, `to_gray` and
 `color_tint` give the values of the JAX package's cv2 calls without
-OpenCV (`data/pixels.py`, identical value for value).
+OpenCV (`data/pixels.py`, identical value for value). The optional
+photometric transforms `jpeg_compression` and `blur` (no entry point calls
+them; they and the combinators `compose`, `random_apply` and
+`multi_scale` are the JAX package's public augmentation API) give the
+values of its cv2 calls too, through the port's codec and
+`pixels.gaussian_blur_u8`.
 
 Same coordinate conventions as the JAX package's `data/transforms.py`:
 rescaling uses `(target-1)/(orig-1)` scale factors, padding fills
@@ -24,9 +29,11 @@ from typing import Dict, List
 
 import numpy as np
 
-from . import pixels
+from ..config import DATA_MEAN, DATA_STD
+from . import codec, pixels
 
 PAD_RGB = (124, 116, 104)
+JPEG_MAX_SIDE = 65500        # libjpeg's JPEG_MAX_DIMENSION
 
 
 def make_meta(w: int, h: int, n_keypoints: int = 17) -> Dict:
@@ -192,6 +199,60 @@ def color_tint(image: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
     return pixels.hsv_to_rgb_u8(hsv.astype(np.uint8))
 
 
+def jpeg_compression(image: np.ndarray, rng: np.random.RandomState,
+                     quality_range=(50, 95)) -> np.ndarray:
+    """Random JPEG re-compression: quality q = rng.randint(lo, hi + 1), the
+    RGB image encoded as cv2.imencode encodes it at q and decoded as
+    cv2.imdecode decodes it. Where cv2.imencode fails (a side above
+    65500) the JAX package returns the input unchanged, and so does
+    this."""
+    q = int(rng.randint(quality_range[0], quality_range[1] + 1))
+    if max(image.shape[:2]) > JPEG_MAX_SIDE:
+        return image
+    return codec.decode_jpeg(codec.encode_jpeg(image, q))
+
+
+def blur(image: np.ndarray, rng: np.random.RandomState,
+         max_sigma: float = 2.0) -> np.ndarray:
+    """Random Gaussian blur: sigma = 0.3 + rng.rand() * (max_sigma - 0.3),
+    then cv2.GaussianBlur(image, (0, 0), sigma)'s uint8 values."""
+    sigma = 0.3 + rng.rand() * (max_sigma - 0.3)
+    return pixels.gaussian_blur_u8(image, sigma)
+
+
+def normalize_image(image: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> float32, ImageNet-normalized."""
+    img = image.astype(np.float32) / 255.0
+    return (img - np.asarray(DATA_MEAN, np.float32)) / np.asarray(
+        DATA_STD, np.float32)
+
+
+def compose(*fns):
+    """Chain transforms of signature (image, anns, meta, mask) -> the same
+    tuple."""
+    def run(image, anns, meta, mask_miss=None):
+        for f in fns:
+            image, anns, meta, mask_miss = f(image, anns, meta, mask_miss)
+        return image, anns, meta, mask_miss
+    return run
+
+
+def random_apply(fn, prob: float, rng: np.random.RandomState):
+    """Apply `fn` when rng.rand() < prob (one draw a call)."""
+    def run(image, anns, meta, mask_miss=None):
+        if rng.rand() < prob:
+            return fn(image, anns, meta, mask_miss)
+        return image, anns, meta, mask_miss
+    return run
+
+
+def multi_scale(*pipelines):
+    """Fan one sample out to N pipelines: the list of their outputs."""
+    def run(image, anns, meta, mask_miss=None):
+        return [p(image, anns, meta, mask_miss) for p in pipelines]
+    return run
+
+
 def resize_bicubic_u8(image: np.ndarray, target_w: int,
                       target_h: int) -> np.ndarray:
     """(H, W, 3) uint8 -> (target_h, target_w, 3) uint8: cv2.resize's
@@ -238,6 +299,13 @@ def rescale_high_absolute(image, anns, meta, height_edge: int):
     return _scale_to(image, anns, meta, int(w * s), int(height_edge))
 
 
+def rescale_relative(image, anns, meta, scale_factor: float):
+    """Resize by a relative factor (each side truncated)."""
+    h, w = image.shape[:2]
+    return _scale_to(image, anns, meta,
+                     int(w * scale_factor), int(h * scale_factor))
+
+
 def pad_with(image: np.ndarray, top: int, left: int, height: int,
              width: int) -> np.ndarray:
     """`image` placed at (top, left) on a (height, width) PAD_RGB canvas."""
@@ -267,6 +335,11 @@ def center_pad(image, anns, meta, target_size: int):
     return out, anns, meta
 
 
+def square_pad(image, anns, meta):
+    """Center-pad to a square of the longer edge."""
+    return center_pad(image, anns, meta, max(image.shape[:2]))
+
+
 def rightdown_pad(image, anns, meta, max_stride: int,
                   w_multiple: int = None):
     """Pad right/bottom to a multiple of `max_stride`; `w_multiple`
@@ -294,3 +367,18 @@ def annotations_inverse(poses: np.ndarray, meta: Dict) -> np.ndarray:
     if meta.get('hflip'):
         raise NotImplementedError('hflip eval preprocessing is not used')
     return poses
+
+
+def affine_keypoint_inverse(poses: np.ndarray, meta: Dict) -> np.ndarray:
+    """Map poses (M, J, >=3) decoded on a train-time warped sample back
+    through the inverse of `meta['affine_mat']`, scales by sqrt of the
+    product of `meta['scale']`, and the keypoints back into their channels
+    (`meta['joint_channel_ind']`, swapped under flip)."""
+    poses = poses.copy()
+    Minv = np.linalg.inv(meta['affine_mat'])[:2]
+    homo = np.concatenate([poses[:, :, :2], np.ones_like(poses[:, :, :1])],
+                          axis=-1)
+    poses[:, :, :2] = np.einsum('ij,pkj->pki', Minv, homo)
+    if poses.shape[-1] > 3:
+        poses[:, :, 3] /= math.sqrt(float(np.prod(meta['scale'])))
+    return poses[:, meta['joint_channel_ind'], :]

@@ -2,7 +2,9 @@
 plain PyTorch version (`ops/grouping.py`).
 
 `group_skeletons(packed (N, L, K, 13), skeleton, cfg)` returns
-`(poses (N, max_poses, J, 6), scores (N, max_poses), counts (N,) int32)`.
+`(poses (N, max_poses, J, 6), scores (N, max_poses), counts (N,) int32)`
+on every device, whatever the capacity: the rows past the kept ones are
+zeros with score 0, as in the TPU kernel the CUDA one replaces.
 It calls the custom op `offsetguided::group_skeletons` with the skeleton
 as a flat list of ints and the decoder settings the grouping reads as
 scalars: its CUDA implementation launches the kernel, one CTA per image,
@@ -48,11 +50,14 @@ def _skeleton_on(dev: torch.device, skeleton: Sequence) -> torch.Tensor:
 def check_shapes(K: int, J: int, M: int, L: int, max_poses: int,
                  sort_dim: int) -> None:
     """Raise ValueError, naming the shapes, where the kernel cannot run:
-    max_poses over the capacity, or more shared memory than a block has."""
-    if not (M > 0 and K > 0 and max_poses <= M and sort_dim in range(6)):
+    an empty capacity, top-k or output, a sort column past the six, or more
+    shared memory than a block has. `max_poses` may pass the capacity: the
+    output's ranks from the capacity on are zeros."""
+    if not (M > 0 and K > 0 and max_poses > 0 and sort_dim in range(6)):
         raise ValueError(f'grouping kernel: capacity {M}, top-k {K}, '
                          f'max_poses {max_poses}, sort_dim {sort_dim}: needs '
-                         f'0 < max_poses <= capacity, 0 <= sort_dim < 6')
+                         f'capacity, top-k and max_poses above 0, '
+                         f'0 <= sort_dim < 6')
     need = smem_bytes(K, J, M, L)
     if need > MAX_SMEM:
         raise ValueError(f'grouping kernel: capacity {M}, top-k {K}, {J} '

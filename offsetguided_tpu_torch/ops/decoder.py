@@ -370,3 +370,15 @@ def pack_limbs(limbs: Limbs) -> torch.Tensor:
             limbs.min_dist, limbs.len_limb, limbs.limb_score,
             limbs.scale_f, limbs.scale_t]
     return torch.stack(cols, dim=-1)
+
+
+def unpack_limbs(packed) -> Limbs:
+    """Inverse of `pack_limbs` (takes a tensor or a numpy array); the
+    keypoint indices come back as int64."""
+    p = torch.as_tensor(packed)
+    return Limbs(
+        xy_f=p[..., 0:2], score_f=p[..., 2],
+        xy_t=p[..., 3:5], score_t=p[..., 5],
+        ind_f=p[..., 6].long(), ind_t=p[..., 7].long(),
+        min_dist=p[..., 8], len_limb=p[..., 9], limb_score=p[..., 10],
+        scale_f=p[..., 11], scale_t=p[..., 12])

@@ -162,7 +162,13 @@ def _delete_sort(subset, used, cfg: DecoderConfig):
     A row's score sums its masked values serially over j, the order of the
     grouping kernel's final pass (`csrc/grouping.cu`), so the two scores
     are bit-equal and a cut at max_poses keeps the same one of two tied
-    rows on both sides."""
+    rows on both sides.
+
+    The output always has max_poses rows, as the TPU kernel's (and the
+    CUDA kernel's) has: where max_poses passes the capacity, the rows from
+    the capacity on are zeros with score 0. The JAX package's XLA path
+    returns min(capacity, max_poses) rows; the extra rows are never kept
+    (`counts` <= capacity), so the records are the same."""
     vals = subset[..., cfg.sort_dim]                           # (N, M, J)
     pos = (vals > 0) & used[:, :, None]
     npos = pos.sum(dim=2)
@@ -182,4 +188,10 @@ def _delete_sort(subset, used, cfg: DecoderConfig):
     out = torch.where(out == -1.0, torch.zeros_like(out), out)
     out_scores = torch.where(out_keep, score.gather(1, order),
                              torch.zeros_like(score[:, :cfg.max_poses]))
+    pad = cfg.max_poses - out.shape[1]
+    if pad > 0:
+        out = torch.cat([out, out.new_zeros((out.shape[0], pad,
+                                             *out.shape[2:]))], dim=1)
+        out_scores = torch.cat(
+            [out_scores, out_scores.new_zeros((out.shape[0], pad))], dim=1)
     return out, out_scores, keep.sum(dim=1).int()

@@ -118,10 +118,9 @@ def kernel_vs_plain(x, sk, j, cfg_kw):
     """Kernel and plain grouping of one input on the card: counts equal,
     scores within 1e-5, pose sets within 1e-4 (poses whose masked-mean
     scores tie but for the order of the float sum may swap places, as in
-    tests/test_grouping_adversarial.py). The kernel takes max_poses up to
-    its capacity, as the JAX package's output has at most that many rows."""
-    cfg_kw = dict(cfg_kw, max_poses=min(cfg_kw['max_poses'],
-                                        cfg_kw['capacity']))
+    tests/test_grouping_adversarial.py), and on both every row past the
+    kept ones exactly zero, the ranks from the capacity on included (each
+    input runs at its own max_poses, above the capacity too)."""
     cfg = DecoderConfig(**cfg_kw)
     t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to('cuda')
     before = grouping.group_skeletons.launches
@@ -131,8 +130,12 @@ def kernel_vs_plain(x, sk, j, cfg_kw):
     assert grouping.group_skeletons.launches == before + 1
     rp, rs, rc = plain_grouping.group_skeletons(t, sk, cfg, j, cfg.capacity)
     assert torch.equal(c, rc)
+    assert p.shape == rp.shape == (len(x), cfg.max_poses, j, 6)
     torch.testing.assert_close(s, rs, atol=1e-5, rtol=0)
     assert pose_sets_match(p, rp, c, atol=1e-4)
+    for poses, scores in ((p, s), (rp, rs)):
+        for i, n in enumerate(c.clamp(max=cfg.max_poses).tolist()):
+            assert not poses[i, n:].any() and not scores[i, n:].any()
     return c
 
 
@@ -154,8 +157,24 @@ def test_grouping_kernel_large_capacity(cuda, capacity, k):
     x = crowd_limbs(4, k, seed=capacity + k)
     c = kernel_vs_plain(x, SK, 17, dict(
         topk=k, dist_max=40.0, use_scale=False, person_thre=0.05,
-        max_poses=min(96, capacity), capacity=capacity))
+        max_poses=96, capacity=capacity))
     assert int(c.min()) > 0
+
+
+@pytest.mark.parametrize('capacity,max_poses', [(64, 96), (16, 40), (8, 12)])
+def test_grouping_kernel_max_poses_over_capacity(cuda, capacity, max_poses):
+    """max_poses above the capacity, which the kernel once refused: JAX's
+    overflow input (78 skeletons) at 64 / 96, dense crowds at 16 / 40 and
+    8 / 12. Every image fills its rows; the ranks from the capacity on
+    are zeros on the kernel's output as on the plain one's."""
+    if capacity == 64:
+        x, sk, j, kw = adversarial_cases()['crowd_78_64']
+    else:
+        x, sk, j = crowd_limbs(4, 24, seed=capacity), SK, 17
+        kw = dict(topk=24, dist_max=40.0, use_scale=False, person_thre=0.05)
+    c = kernel_vs_plain(x, sk, j, dict(kw, capacity=capacity,
+                                       max_poses=max_poses))
+    assert c.tolist() == [capacity] * len(x)
 
 
 @pytest.mark.parametrize('kind', ['persons_k40', 'all_nan', 'all_invalid'])
