@@ -1,0 +1,6 @@
+"""The grouping kernel's share of its roofline in the traced stretch."""
+from roofline import share
+
+
+def read(rec):
+    return share(rec, 'grouping')
