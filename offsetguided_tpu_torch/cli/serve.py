@@ -10,10 +10,11 @@ stride-resolution decode) and the batched infer function on one device.
 `Batcher` collects up to `--batch-size` requests within
 `--batch-window-ms`, zero-pads them to the one batch shape, runs one
 infer and answers each request with its poses in original image
-coordinates. `make_server` puts a thread-per-connection HTTP server in
-front of it; request bodies are decoded by the port's own JPEG / PNG
-codec (`data/codec.py`), which gives cv2.imdecode's pixels without
-OpenCV.
+coordinates; it records each batch's stages, each request's queue wait
+and the device gap between batches in `utils/profiling.RECORDER`.
+`make_server` puts a thread-per-connection HTTP server in front of it;
+request bodies are decoded by the port's own JPEG / PNG codec
+(`data/codec.py`), which gives cv2.imdecode's pixels without OpenCV.
 
 Endpoints:
   GET  /healthz    -> {"status": "ok", "device": "cuda" | "cpu", ...}
@@ -48,6 +49,7 @@ from ..decoder import PostProcessor
 from ..device import resolve_device
 from ..eval.harness import make_infer_fn, preprocess_eval
 from ..models import PoseNet, random_posenet
+from ..utils.profiling import RECORDER, DeviceGaps
 
 
 def cli(argv=None):
@@ -155,7 +157,14 @@ class Batcher:
     Requests enqueue (uint8 image, meta); one dispatcher thread collects up
     to `batch_size` of them within `window_ms`, zero-pads to the batch
     shape, runs `infer` once on `device`, and hands each request its
-    inverse-transformed poses. `close()` stops the thread."""
+    inverse-transformed poses. `close()` stops the thread.
+
+    Each batch records in `RECORDER` its spans `serve.collect` (from the
+    first request's arrival to the batch's close), `serve.stack`,
+    `serve.h2d`, `serve.fetch` (both copies back) and `serve.answer` (the
+    inverses and the hand-overs), with `infer.*` between h2d and fetch;
+    each answered request its submit, its batch's close and its answer;
+    on a CUDA device the idle gap since the previous batch."""
 
     def __init__(self, infer, batch_size: int, window_ms: float, device):
         self._infer = infer
@@ -170,6 +179,7 @@ class Batcher:
         self.n_errors = 0
         self._fill_sum = 0          # images per dispatched batch
         self._lat_ring = []         # last 512 device-batch latencies (s)
+        self._gaps = DeviceGaps(self._device)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -202,7 +212,8 @@ class Batcher:
         image coordinates, shape (M, J, 6)."""
         ev = threading.Event()
         slot = {}
-        self._q.put((image, meta, ev, slot))
+        self._q.put((image, meta, ev, slot, RECORDER.new_request(),
+                     time.perf_counter()))
         if not ev.wait(timeout):
             raise TimeoutError('inference timed out')
         if 'error' in slot:
@@ -218,6 +229,8 @@ class Batcher:
             first = self._q.get()
             if first is None:
                 return
+            t_first = time.perf_counter()
+            seq = RECORDER.new_batch()
             batch = [first]
             deadline = time.monotonic() + self._window
             stop = False
@@ -233,27 +246,45 @@ class Batcher:
                     stop = True
                     break
                 batch.append(item)
-            self._run(batch)
+            t_taken = time.perf_counter()
+            RECORDER.add_span('serve.collect', t_first, t_taken, seq)
+            self._run(batch, seq, t_taken)
             if stop:
                 return
 
-    def _run(self, batch):
+    def _run(self, batch, seq: int, t_taken: float):
+        rec = RECORDER
+        stage = rec.start('serve.stack')
         imgs = [b[0] for b in batch]
         while len(imgs) < self._bs:
             imgs.append(np.zeros_like(imgs[0]))
         t0 = time.monotonic()
         err = 0
         try:
-            x = torch.from_numpy(np.stack(imgs)).to(self._device)
+            stacked = np.stack(imgs)
+            rec.stop(stage, seq)
+            self._gaps.begin(seq)
+            stage = rec.start('serve.h2d')
+            x = torch.from_numpy(stacked).to(self._device)
+            rec.stop(stage, seq)
             poses, _, counts = self._infer(x)
+            self._gaps.end(seq)
+            stage = rec.start('serve.fetch')
             poses = poses.cpu().numpy()
             counts = counts.cpu().numpy()
-            for i, (_, meta, ev, slot) in enumerate(batch):
+            rec.stop(stage, seq)
+            self._gaps.read(seq)
+            stage = rec.start('serve.answer')
+            # each answer's RequestRecord, stamped before its waiter wakes
+            answered, now = rec.requests.append, time.perf_counter
+            for i, (_, meta, ev, slot, rid, t_submit) in enumerate(batch):
                 slot['poses'] = T.annotations_inverse(
                     poses[i][:int(counts[i])], meta)
+                answered((rid, seq, t_submit, t_taken, now()))
                 ev.set()
+            rec.stop(stage, seq)
         except Exception as e:  # every waiter of the batch sees the error
-            for _, _, ev, slot in batch:
+            for _, _, ev, slot, _, _ in batch:
                 slot['error'] = e
                 ev.set()
             err = len(batch)

@@ -13,6 +13,9 @@ Port of the JAX package's `PostProcessor`, routed as it routes on the TPU:
 Grouping goes through `ops/cuda/grouping.py`. Each wrapper launches its CUDA
 kernel for a CUDA tensor and takes its plain version for a CPU tensor; the
 call sites look the wrappers up on their modules at call time.
+`decode_body` records its stages in `utils/profiling.RECORDER`:
+`decode.merge` (flip test), `decode.limbs` (peaks, limb collection,
+packing) and `decode.group`.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from ..ops import decoder as dec_ops
 from ..ops.cuda import grouping as cuda_grouping
 from ..ops.cuda.peaks import FACTOR as PEAKS_FACTOR
 from ..ops.resize import upsample2d
+from ..utils.profiling import RECORDER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +111,10 @@ class PostProcessor:
         maps = self.select_stage(preds)
         if flip_test:
             maps = self.flip_merge(maps)
+        return self.packed_limbs(maps)
+
+    def packed_limbs(self, maps):
+        """One stack's (merged) maps -> (N, L, K, 13) packed limbs."""
         cfg = self.cfg
         s = cfg.stride
         hmp, omp, scmp = maps['hmp'], maps['omp'], maps['scmp']
@@ -157,8 +165,19 @@ class PostProcessor:
     def decode_body(self, preds, flip_test: bool = False):
         """preds (PoseNet output) -> (poses, scores, counts); poses are
         (N, max_poses, J, 6) in network-input pixel coordinates."""
-        packed = self.decode_packed_limbs(preds, flip_test)
+        rec = RECORDER
+        maps = self.select_stage(preds)
+        if flip_test:
+            stage = rec.start('decode.merge')
+            maps = self.flip_merge(maps)
+            rec.stop(stage)
+        stage = rec.start('decode.limbs')
+        packed = self.packed_limbs(maps)
+        rec.stop(stage)
+        stage = rec.start('decode.group')
         skeleton = tuple(zip(self._jf.tolist(), self._jt.tolist()))
-        return cuda_grouping.group_skeletons(
+        out = cuda_grouping.group_skeletons(
             packed, skeleton, self.cfg, n_keypoints=self.skeleton.n_keypoints,
             capacity=self.cfg.capacity)
+        rec.stop(stage)
+        return out

@@ -8,7 +8,8 @@ orders images by aspect ratio and flushes a partial batch when the padded
 shape changes. uint8 goes to the device, normalization runs there, and
 flip-test doubles the batch inside the infer function. Images are read
 with `data/coco.py::read_image` (JPEG and PNG through the port's codec,
-`.npy` with numpy).
+`.npy` with numpy). The infer function and `run_images` record their
+stages in `utils/profiling.RECORDER`.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from ..data import transforms as T
 from ..data.coco import CocoJson, read_image
 from ..decoder import PostProcessor
 from ..ops.image import normalize_images
+from ..utils.profiling import RECORDER, DeviceGaps
 
 
 def preprocess_eval(image: np.ndarray, anns: np.ndarray, cfg: EvalConfig,
@@ -55,15 +57,22 @@ def make_infer_fn(model: torch.nn.Module, pp: PostProcessor,
     """images (N, H, W, 3) uint8 or normalized float on the model's device
     -> (poses, scores, counts), with the flipped half and its merge inside
     when `flip_test`. The function carries its `model` and `postprocessor`
-    as attributes."""
+    as attributes. Its spans `infer.forward` (normalization, flip concat,
+    model) and `infer.decode` (`decode_body`) time the host's issue of
+    their launches, as stages of the calling thread's current batch."""
 
     @torch.inference_mode()
     def infer(images: torch.Tensor):
+        stage = RECORDER.start('infer.forward')
         images = normalize_images(images)
         if flip_test:
             images = torch.cat([images, torch.flip(images, dims=(2,))])
         preds = model(images)
-        return pp.decode_body(preds, flip_test=flip_test)
+        RECORDER.stop(stage)
+        stage = RECORDER.start('infer.decode')
+        out = pp.decode_body(preds, flip_test=flip_test)
+        RECORDER.stop(stage)
+        return out
 
     infer.model, infer.postprocessor = model, pp
     return infer
@@ -132,7 +141,12 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
     device. Fixed-height batches hold one padded shape: images go in
     aspect-ratio order and a partial batch is flushed when the shape
     changes (per-image decode is batch-independent, so the records equal
-    batch-1 records)."""
+    batch-1 records).
+
+    Each batch records in `RECORDER` its spans `eval.io_wait` (a wait for
+    an IO worker's image, one an image), `eval.stack`, `eval.h2d`,
+    `infer.*`, `eval.fetch` and `eval.records`, and on a CUDA device the
+    idle gap since the previous batch, read after its fetch."""
     skeleton = skeleton or SkeletonConfig()
     n_kp = skeleton.n_keypoints
     device = next(model.parameters()).device
@@ -146,37 +160,53 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
     infer = make_infer_fn(model, pp, cfg.flip_test)
 
     results: List[Dict] = []
-    pending = None          # (device output, metas, ids, n) awaiting fetch
+    pending = None      # (device output, metas, ids, n, batch) awaiting fetch
+    rec, gaps = RECORDER, DeviceGaps(device)
+    seq = rec.new_batch()           # the batch being filled
 
     def drain():
         nonlocal pending
         if pending is None:
             return
-        (poses, _, counts), metas, bids, n = pending
+        (poses, _, counts), metas, bids, n, b = pending
         pending = None
+        stage = rec.start('eval.fetch')
         poses, counts = poses.cpu().numpy(), counts.cpu().numpy()
+        rec.stop(stage, b)
+        gaps.read(b)
+        stage = rec.start('eval.records')
         for i in range(n):
             # drop the zero pose rows before the inverse transform, which
             # would shift them into spurious detections
             inv = T.annotations_inverse(poses[i][:int(counts[i])], metas[i])
             results.extend(poses_to_coco_results(inv, bids[i]))
+        rec.stop(stage, b)
 
-    def dispatch(imgs, metas, bids):
+    def dispatch(imgs, metas, bids, b):
         n = len(imgs)
+        stage = rec.start('eval.stack')
         imgs = imgs + [np.zeros_like(imgs[0])] * (batch_size - n)
-        out = infer(torch.from_numpy(np.stack(imgs)).to(device))
-        return out, metas, bids, n
+        stacked = np.stack(imgs)
+        rec.stop(stage, b)
+        gaps.begin(b)
+        stage = rec.start('eval.h2d')
+        x = torch.from_numpy(stacked).to(device)
+        rec.stop(stage, b)
+        out = infer(x)
+        gaps.end(b)
+        return out, metas, bids, n, b
 
     n_workers = max(1, cfg.io_workers)
     window = max(batch_size * 2, n_workers * 2)
     batch_imgs, batch_metas, batch_ids = [], [], []
 
     def flush():
-        nonlocal pending, batch_imgs, batch_metas, batch_ids
-        nxt = dispatch(batch_imgs, batch_metas, batch_ids)
+        nonlocal pending, batch_imgs, batch_metas, batch_ids, seq
+        nxt = dispatch(batch_imgs, batch_metas, batch_ids, seq)
         drain()                    # host work overlaps the running batch
         pending = nxt
         batch_imgs, batch_metas, batch_ids = [], [], []
+        seq = rec.new_batch()
 
     with ThreadPoolExecutor(max_workers=n_workers) as ex:
         futures, submitted, done = [], 0, 0
@@ -190,7 +220,9 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
 
         submit_more()
         while futures:
+            stage = rec.start('eval.io_wait')
             img_id, img, meta = futures.pop(0).result()
+            rec.stop(stage, seq)
             submit_more()
             done += 1
             if img is None:
