@@ -15,7 +15,11 @@ kernel for a CUDA tensor and takes its plain version for a CPU tensor; the
 call sites look the wrappers up on their modules at call time.
 `decode_body` records its stages in `utils/profiling.RECORDER`:
 `decode.merge` (flip test), `decode.limbs` (peaks, limb collection,
-packing) and `decode.group`.
+packing) and `decode.group`. The index lists it reads on the device (flip
+permutations, limb ends, channel groups) are copied there once
+(`ops/constants.py`), and the tap weights are Python floats, so a warm
+decode issues its launches without a copy from the host: nothing in it
+waits for the forward before it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from ..config.defaults import DecoderConfig, SkeletonConfig
 from ..ops import decoder as dec_ops
+from ..ops.constants import on_device
 from ..ops.cuda import grouping as cuda_grouping
 from ..ops.cuda.peaks import FACTOR as PEAKS_FACTOR
 from ..ops.resize import upsample2d
@@ -66,12 +71,13 @@ class PostProcessor:
         hmp = maps['hmp']
         n2 = hmp.shape[0]
         n = n2 // 2
-        kp_flip = self._kp_flip
+        dev = hmp.device
+        kp_flip = on_device(self._kp_flip, dev)
 
         def unflip(x):
             return torch.flip(x[n:], dims=(2,))
 
-        out = {'hmp': (hmp[:n] + unflip(hmp)[..., kp_flip]) / 2}
+        out = {'hmp': (hmp[:n] + unflip(hmp).index_select(-1, kp_flip)) / 2}
         if maps['jomp'] is not None:
             fj = unflip(maps['jomp']).clone()
             fj[..., 0] *= -1.0
@@ -86,21 +92,21 @@ class PostProcessor:
         orig = off5[:n]
         flip = torch.flip(off5[n:], dims=(2,)).clone()
         flip[..., 0] *= -1.0
-        flip = flip[..., self._limb_flip, :]
-        r = self._reserve
+        flip = flip.index_select(-2, on_device(self._limb_flip, dev))
+        r = on_device(self._reserve, dev) if self._reserve else None
         if self.cfg.cat_flip_offs:
             cat = torch.cat([orig, flip], dim=-1)              # (N, h, w, L, 4)
-            if r:
-                cat[..., r, 2:4] = orig[..., r, :]
+            if r is not None:
+                cat[..., 2:4].index_copy_(-2, r, orig.index_select(-2, r))
             out['omp'] = cat.reshape(n, h, w, 4 * L)
         else:
             merged = (orig + flip) / 2
-            if r:
-                merged[..., r, :] = orig[..., r, :]
+            if r is not None:
+                merged.index_copy_(-2, r, orig.index_select(-2, r))
             out['omp'] = merged.reshape(n, h, w, 2 * L)
 
         if maps['scmp'] is not None:
-            fs = unflip(maps['scmp'])[..., kp_flip]
+            fs = unflip(maps['scmp']).index_select(-1, kp_flip)
             out['scmp'] = (maps['scmp'][:n] + fs) / 2
         else:
             out['scmp'] = None
@@ -136,11 +142,11 @@ class PostProcessor:
                                       self._jt, cfg, scmps=scmp)
         packed = dec_ops.pack_limbs(limbs)
         # cell -> input pixel (x * s + s/2 - 0.5) for on-image candidates;
-        # off-image sentinels stay far negative; lengths scale by s
-        xy_cols = [0, 1, 3, 4]
-        coords = packed[..., xy_cols]
-        packed[..., xy_cols] = torch.where(coords > -1000.0,
-                                           coords * s + (s / 2 - 0.5), coords)
+        # off-image sentinels stay far negative; lengths scale by s. The
+        # columns x1, y1, x2, y2 (0, 1, 3, 4) as one strided view
+        coords = packed[..., :6].unflatten(-1, (2, 3))[..., :2]
+        coords.copy_(torch.where(coords > -1000.0,
+                                 coords * s + (s / 2 - 0.5), coords))
         packed[..., 8:10] *= float(s)
         if jomp is not None:
             packed = self._apply_jitter_lowres(packed, jomp, limbs)

@@ -80,19 +80,20 @@ def make_infer_fn(model: torch.nn.Module, pp: PostProcessor,
 
 def poses_to_coco_results(poses: np.ndarray, image_id: int) -> List[Dict]:
     """(M, J, 6) decoded poses -> COCO keypoint result dicts, with the
-    dummy record when there is none."""
-    results = []
-    poses = poses.copy()
-    poses[:, :, :2] = np.around(poses[:, :, :2], 2)
-    for person in poses:
-        if not np.any(person[:, :3]):
-            continue
-        v = person[:, 2]
-        kps = []
-        for x, y, vv in person[:, :3]:
-            kps += [float(x), float(y), 1 if (x > 0 or y > 0) else 0]
-        results.append({'image_id': image_id, 'category_id': 1,
-                        'keypoints': kps, 'score': float(v.sum() / len(v))})
+    dummy record when there is none. The JAX package's per-keypoint loop
+    with its values and types (x, y rounded to 2 decimals as float32 then
+    Python floats, visibility a Python int, score the float32 mean of a
+    pose's scores), read from whole-array lists: the launching loop writes
+    these records while the card runs the next batch."""
+    xy = np.around(poses[:, :, :2], 2)
+    v = poses[:, :, 2]
+    seen = (xy != 0).any(axis=(1, 2)) | (v != 0).any(axis=1)
+    on = ((xy[..., 0] > 0) | (xy[..., 1] > 0)).astype(np.int64)
+    xs, ys, ons = xy[..., 0].tolist(), xy[..., 1].tolist(), on.tolist()
+    results = [{'image_id': image_id, 'category_id': 1,
+                'keypoints': [c for k in zip(xs[p], ys[p], ons[p]) for c in k],
+                'score': float(v[p].sum() / len(v[p]))}
+               for p in np.flatnonzero(seen).tolist()]
     if not results:
         results.append(_dummy_record(image_id, poses.shape[1]))
     return results
@@ -119,6 +120,14 @@ def _load_eval_image(coco: CocoJson, image_dir: str, img_id: int,
     return img_id, img, meta
 
 
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of device tensor `t` into pinned host memory, enqueued on the
+    current stream without waiting for it."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
 def eval_image_ids(coco: CocoJson, n_images: Optional[int] = None,
                    all_images: bool = False) -> List[int]:
     """The image set `run_images` evaluates: person images (or all images,
@@ -143,10 +152,21 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
     changes (per-image decode is batch-independent, so the records equal
     batch-1 records).
 
+    On a CUDA device nothing in a dispatch waits for the device: the batch
+    is stacked into pinned host memory and copied without blocking, the
+    infer function issues without a host sync, and the poses and counts
+    are copied back into pinned memory behind one event, which the fetch
+    of that batch alone waits for. So batch N+1 is issued while N runs,
+    and N's records are written while N+1 runs. The caching host
+    allocator hands no pinned block out again before the copies that used
+    it have ended.
+
     Each batch records in `RECORDER` its spans `eval.io_wait` (a wait for
     an IO worker's image, one an image), `eval.stack`, `eval.h2d`,
-    `infer.*`, `eval.fetch` and `eval.records`, and on a CUDA device the
-    idle gap since the previous batch, read after its fetch."""
+    `infer.*`, `eval.fetch` and `eval.records`; whether the previous
+    batch was still in flight on the device when its input copy was
+    enqueued (an event query; never on a CPU device); and on a CUDA device
+    the idle gap since the previous batch, read after its fetch."""
     skeleton = skeleton or SkeletonConfig()
     n_kp = skeleton.n_keypoints
     device = next(model.parameters()).device
@@ -158,9 +178,12 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
             return info['width'] / max(info['height'], 1)
         ids = sorted(ids, key=aspect)
     infer = make_infer_fn(model, pp, cfg.flip_test)
+    cuda = device.type == 'cuda'
 
     results: List[Dict] = []
-    pending = None      # (device output, metas, ids, n, batch) awaiting fetch
+    # (poses, counts, ready event | None), metas, ids, n, batch: awaiting
+    # its fetch; on a CUDA device poses and counts are pinned host copies
+    pending = None
     rec, gaps = RECORDER, DeviceGaps(device)
     seq = rec.new_batch()           # the batch being filled
 
@@ -168,10 +191,12 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
         nonlocal pending
         if pending is None:
             return
-        (poses, _, counts), metas, bids, n, b = pending
+        (poses, counts, ready), metas, bids, n, b = pending
         pending = None
         stage = rec.start('eval.fetch')
-        poses, counts = poses.cpu().numpy(), counts.cpu().numpy()
+        if ready is not None:
+            ready.synchronize()
+        poses, counts = poses.numpy(), counts.numpy()
         rec.stop(stage, b)
         gaps.read(b)
         stage = rec.start('eval.records')
@@ -185,16 +210,26 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
     def dispatch(imgs, metas, bids, b):
         n = len(imgs)
         stage = rec.start('eval.stack')
-        imgs = imgs + [np.zeros_like(imgs[0])] * (batch_size - n)
-        stacked = np.stack(imgs)
+        stacked = torch.empty((batch_size,) + imgs[0].shape,
+                              dtype=torch.uint8, pin_memory=cuda)
+        host = stacked.numpy()
+        np.stack(imgs, out=host[:n])
+        host[n:] = 0
         rec.stop(stage, b)
         gaps.begin(b)
         stage = rec.start('eval.h2d')
-        x = torch.from_numpy(stacked).to(device)
+        x = stacked.to(device, non_blocking=True)
         rec.stop(stage, b)
-        out = infer(x)
+        before = pending[0][2] if pending is not None else None
+        rec.overlaps.append((b, before is not None and not before.query()))
+        poses, _, counts = infer(x)
+        ready = None
+        if cuda:
+            poses, counts = _pinned_copy(poses), _pinned_copy(counts)
+            ready = torch.cuda.Event()
+            ready.record()
         gaps.end(b)
-        return out, metas, bids, n, b
+        return (poses, counts, ready), metas, bids, n, b
 
     n_workers = max(1, cfg.io_workers)
     window = max(batch_size * 2, n_workers * 2)

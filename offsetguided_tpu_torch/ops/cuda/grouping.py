@@ -15,11 +15,12 @@ the output shapes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from ...config.defaults import DecoderConfig
+from ..constants import on_device
 from ..grouping import group_skeletons as group_skeletons_plain
 from . import _build
 from ._build import MAX_SMEM
@@ -33,18 +34,6 @@ def smem_bytes(K: int, J: int, M: int, L: int) -> int:
     for each of the 32 warps; four bytes each."""
     return 4 * (M * J * 6 + M * (J | 1) + 2 * K * 13 + 2 * L + 4 * M + 2 * K
                 + 32 * ((K + 31) // 32))
-
-
-_skeletons: Dict[Tuple[torch.device, tuple], torch.Tensor] = {}
-
-
-def _skeleton_on(dev: torch.device, skeleton: Sequence) -> torch.Tensor:
-    """The (L, 2) int32 skeleton on `dev`, copied there once: a copy per
-    call from pageable host memory would wait for the stream's queued work."""
-    key = (dev, tuple(map(tuple, skeleton)))
-    if key not in _skeletons:
-        _skeletons[key] = torch.tensor(key[1], dtype=torch.int32, device=dev)
-    return _skeletons[key]
 
 
 def check_shapes(K: int, J: int, M: int, L: int, max_poses: int,
@@ -100,7 +89,8 @@ def _group_cuda(packed_limbs: torch.Tensor, skeleton: List[int],
     check_shapes(K, n_keypoints, capacity, L, max_poses, sort_dim)
     dev = packed_limbs.device
     x = packed_limbs.float().contiguous()
-    skel = _skeleton_on(dev, _pairs(skeleton))
+    # the (L, 2) skeleton, copied to the device once
+    skel = on_device(_pairs(skeleton), dev, torch.int32)
     poses = torch.empty((n, max_poses, n_keypoints, 6),
                         dtype=torch.float32, device=dev)
     scores = torch.empty((n, max_poses), dtype=torch.float32, device=dev)

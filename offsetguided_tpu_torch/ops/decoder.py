@@ -6,7 +6,8 @@ resolution on the upsampled paths, at stride resolution in
 `collect_limbs`), and `pack_limbs` gives the reference's
 `(N, L, K, 13)` layout
 [x1, y1, v1, x2, y2, v2, ind1, ind2, len_delta, len_limb, limb_score,
-scale1, scale2].
+scale1, scale2]. Limb ends and channel groups go to the maps' device
+through `ops/constants.py`, copied there once.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.defaults import DecoderConfig
+from .constants import on_device
 
 
 class Limbs(NamedTuple):
@@ -136,7 +138,7 @@ def sample_limb_maps(maps: torch.Tensor, channels, xs: torch.Tensor,
     if channels is None:
         ch = torch.arange(C, device=dev)[None, :].expand(L, C)
     else:
-        ch = torch.as_tensor(np.asarray(channels), device=dev).long()
+        ch = on_device(channels, dev)
         ch = ch[:, None] if ch.dim() == 1 else ch
     V = ch.shape[1]
     idx = pix[..., None] * C + ch[None, :, None, None, None, :]
@@ -158,8 +160,7 @@ def _collect_from_peaks(scores, ys, xs, h: int, w: int, offs4, jtypes_f,
     n, C, k = scores.shape
     L = len(jtypes_f)
     dev = scores.device
-    jf = torch.as_tensor(np.asarray(jtypes_f), device=dev).long()
-    jt = torch.as_tensor(np.asarray(jtypes_t), device=dev).long()
+    jf, jt = on_device(jtypes_f, dev), on_device(jtypes_t, dev)
     inds = ys * w + xs
 
     def channel_dets(jtypes):
@@ -259,7 +260,7 @@ def scored_offset(hmp: torch.Tensor, off: torch.Tensor, jtypes_f,
     start joint's heatmap response as the weight."""
     n, h, w, c2 = off.shape
     L = len(jtypes_f)
-    score = hmp[..., list(np.asarray(jtypes_f))]                  # (N, H, W, L)
+    score = hmp.index_select(-1, on_device(jtypes_f, hmp.device))  # (N,H,W,L)
     somap = off.reshape(n, h, w, L, c2 // L) * score[..., None]   # (N,H,W,L,V)
     pad = (kernel_size - 1) // 2
 
@@ -291,8 +292,7 @@ def collect_limbs(hmps: torch.Tensor, offs: torch.Tensor, jtypes_f,
     L = len(jtypes_f)
     k = cfg.topk
     dev = hmps.device
-    jf = torch.as_tensor(np.asarray(jtypes_f), device=dev).long()
-    jt = torch.as_tensor(np.asarray(jtypes_t), device=dev).long()
+    jf, jt = on_device(jtypes_f, dev), on_device(jtypes_t, dev)
 
     if cfg.nms_kernel == 3:
         from .cuda import nms_topk as cuda_nms

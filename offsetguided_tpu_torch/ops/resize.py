@@ -75,7 +75,9 @@ def upsample_axis(x: torch.Tensor, axis: int, factor: int,
         acc = None
         for off, wt in taps:
             src = x.index_select(axis, (idx + off).clamp(0, n - 1))
-            term = src * torch.tensor(wt, dtype=x.dtype, device=x.device)
+            # the float32 weight as a Python float: on float32 maps the
+            # product of a 0-d tensor of it, without a copy to the device
+            term = src * wt
             acc = term if acc is None else acc + term
         parts.append(acc)
     stacked = torch.stack(parts, dim=axis + 1)

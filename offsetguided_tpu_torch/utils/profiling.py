@@ -3,7 +3,8 @@ per-call device time and per-stage timing.
 
 Port of the JAX package's `utils/profiling.py`, plus the recorder.
 `RECORDER` keeps the serving and evaluation loops' stage spans, the
-requests' queue waits and the device gaps between batches in bounded
+requests' queue waits, the device gaps between batches and whether each
+evaluation batch was enqueued behind one still in flight in bounded
 rings on the `time.perf_counter` clock, at a few microseconds a batch,
 for as long as the process lives; `Recorder.window` reads the batches
 that start inside an interval. `trace` records a torch.profiler run (CUDA
@@ -61,12 +62,20 @@ class GapRecord(NamedTuple):
                             # launch to this batch's first copy
 
 
+class OverlapRecord(NamedTuple):
+    batch: int
+    in_flight: bool         # the loop's previous batch had not finished on
+                            # the device when this batch's input copy was
+                            # enqueued
+
+
 class Window(NamedTuple):
     """The records of the batches that start inside an interval."""
     batches: Dict[int, Dict[str, float]]    # batch -> span name -> seconds
     spans: List[SpanRecord]
     requests: List[RequestRecord]
     gaps: List[GapRecord]                   # both batches inside
+    overlaps: List[OverlapRecord]
 
 
 class _Current(threading.local):
@@ -74,8 +83,8 @@ class _Current(threading.local):
 
 
 class Recorder:
-    """Spans, request records and device gaps in rings of `capacity`
-    records each. Appends are single deque appends (atomic under the
+    """Spans, request records, device gaps and overlap flags in rings of
+    `capacity` records each. Appends are single deque appends (atomic under the
     interpreter lock), so recording takes no lock; batch and request
     numbers come from process-wide counters. Nothing is written out until
     `window` or `trace` reads the rings."""
@@ -84,6 +93,7 @@ class Recorder:
         self.spans = collections.deque(maxlen=capacity)
         self.requests = collections.deque(maxlen=capacity)
         self.gaps = collections.deque(maxlen=capacity)
+        self.overlaps = collections.deque(maxlen=capacity)
         self._batches = itertools.count()
         self._requests = itertools.count()
         self._local = _Current()
@@ -124,7 +134,8 @@ class Recorder:
     def window(self, t0: float, t1: float) -> Window:
         """The records of the batches whose first span starts in [t0, t1):
         their stages' seconds summed by name, their spans, their requests,
-        and the gaps whose two batches both start there."""
+        the gaps whose two batches both start there, and their overlap
+        flags."""
         spans = [SpanRecord._make(s) for s in list(self.spans)]
         start: Dict[int, float] = {}
         for s in spans:
@@ -140,7 +151,9 @@ class Recorder:
                     if r[1] in keep]
         gaps = [GapRecord._make(g) for g in list(self.gaps)
                 if g[0] in keep and g[1] in keep]
-        return Window(batches, spans, requests, gaps)
+        overlaps = [OverlapRecord._make(o) for o in list(self.overlaps)
+                    if o[0] in keep]
+        return Window(batches, spans, requests, gaps, overlaps)
 
     def chrome_events(self, t0: float, t1: float, anchor: tuple,
                       base_ns: int = 0) -> list:
@@ -188,10 +201,10 @@ class DeviceGaps:
     """The device's idle time between one loop's consecutive batches,
     sampled: into every `STRIDE`-th batch of the loop, a CUDA event on the
     loop thread's current stream (as it is at the first batch) after the
-    previous batch's last launch (`end`) and one before this batch's first
-    copy (`begin`), from a reused pool; `read(batch)`, once the batch's
-    results have been fetched (so its events have completed), records the
-    gap. Adds no synchronization; records nothing on a CPU device. The
+    previous batch's last launch or output copy (`end`) and one before
+    this batch's first copy (`begin`), from a reused pool; `read(batch)`,
+    once the batch's results have been fetched (so its events have
+    completed), records the gap. Adds no synchronization; records nothing on a CPU device. The
     stride keeps the events' host cost (two records and an `elapsed_time`,
     ~13 µs on the card's host) at a few µs a batch."""
 

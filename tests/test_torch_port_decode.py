@@ -3,8 +3,11 @@ maps: the packed (N, L, K, 13) limbs (index columns 6-7 exact) and the
 grouped poses, with flip-test off, on, and with `cat_flip_offs`, on every
 decode route: square maps (fused peaks), rectangular maps and a 5x5 NMS
 (upsample + block top-k), stride resolution with and without jitter, and
-`scored_offset`."""
+`scored_offset`; and a warm decode or normalization that builds no tensor
+from host data."""
 import functools
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -55,16 +58,16 @@ def scene_maps(n, seed=0, w=IMG):
             'omp': np.asarray(t.omp), 'scmp': np.asarray(t.scmp) * 0.1}
 
 
-def random_maps(n, seed=0, quantized=False):
+def random_maps(n, seed=0, quantized=False, w=IMG):
     rng = np.random.RandomState(seed)
-    h = IMG // 4
-    hmp = rng.rand(n, h, h, 17).astype(np.float32) ** 3
+    h, w = IMG // 4, w // 4
+    hmp = rng.rand(n, h, w, 17).astype(np.float32) ** 3
     if quantized:                       # ties in the peak selection
         hmp = (np.round(hmp * 8) / 8).astype(np.float32)
     return {'hmp': hmp,
-            'jomp': (rng.randn(n, h, h, 2) * 0.5).astype(np.float32),
-            'omp': (rng.randn(n, h, h, 38) * 4).astype(np.float32),
-            'scmp': (rng.rand(n, h, h, 17) * 8).astype(np.float32)}
+            'jomp': (rng.randn(n, h, w, 2) * 0.5).astype(np.float32),
+            'omp': (rng.randn(n, h, w, 38) * 4).astype(np.float32),
+            'scmp': (rng.rand(n, h, w, 17) * 8).astype(np.float32)}
 
 
 def both(maps, **kw):
@@ -195,3 +198,74 @@ def test_postprocessor_rejects_what_the_kernels_do_not_compute():
     instead of decoding wrongly."""
     with pytest.raises(NotImplementedError):
         PostProcessor(cfg=DecoderConfig(stride=8))
+
+
+# --- a warm decode builds no tensor from host data --------------------- #
+
+# the modules of the decode and the normalization; a tensor they build
+# from a list, a tuple, an array or a number is a copy from the host,
+# which on the card waits for the stream's queued work
+HOST_COPY_FILES = ('decoder/pipeline.py', 'ops/decoder.py', 'ops/resize.py',
+                   'ops/image.py', 'ops/constants.py')
+
+
+@pytest.fixture
+def host_built(monkeypatch):
+    """The (function, file, line) of every `torch.tensor` /
+    `torch.as_tensor` call from HOST_COPY_FILES whose data is host data."""
+    made = []
+    for name in ('tensor', 'as_tensor'):
+        def counted(data, *args, _make=getattr(torch, name), _name=name,
+                    **kw):
+            frame = sys._getframe(1)
+            path = frame.f_code.co_filename.replace(os.sep, '/')
+            if (isinstance(data, (list, tuple, np.ndarray, float, int))
+                    and path.endswith(HOST_COPY_FILES)):
+                made.append((_name, path, frame.f_lineno))
+            return _make(data, *args, **kw)
+        monkeypatch.setattr(torch, name, counted)
+    return made
+
+
+# every decode route, and the flip merge on each resolution and with
+# `cat_flip_offs`: (map width, DecoderConfig, flip test)
+WARM_CASES = {
+    'square': (IMG, {}, False),
+    'square_flip': (IMG, {}, True),
+    'square_catflip': (IMG, dict(cat_flip_offs=True), True),
+    'rect_flip': (IMG + 64, {}, True),
+    'nms5': (IMG, dict(nms_kernel=5), False),
+    'lowres_flip': (IMG, dict(upsampled_decode=False), True),
+    'lowres_nojitter': (IMG, dict(upsampled_decode=False,
+                                  use_jitter_offset=False), False),
+    'scored_offset': (IMG + 32, dict(scored_offset=True), False),
+}
+
+
+@pytest.mark.parametrize('case', sorted(WARM_CASES) + ['normalize'])
+def test_a_warm_call_builds_no_tensor_from_host_data(case, host_built):
+    """The second `decode_body` call on each route, and the second
+    `normalize_images` call, build no tensor from host data in the decode
+    and normalization modules (the first may: it fills the device cache),
+    and return what the first returned, bit for bit."""
+    from offsetguided_tpu_torch.ops.image import normalize_images
+    if case == 'normalize':
+        x = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 256, (2, 16, 24, 3), dtype=np.uint8))
+        def call():
+            return (normalize_images(x),)
+    else:
+        w, kw, flip_test = WARM_CASES[case]
+        preds = {k: [torch.from_numpy(v)] for k, v in
+                 random_maps(4 if flip_test else 2, 7, w=w).items()}
+        pp = PostProcessor(cfg=DecoderConfig(**dict(GROUP_KW, **kw)))
+        def call():
+            return pp.decode_body(preds, flip_test)
+    first = call()
+    del host_built[:]
+    second = call()
+    assert host_built == []
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    if case != 'normalize':
+        assert int(first[2].sum()) > 0

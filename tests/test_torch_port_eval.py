@@ -211,6 +211,32 @@ def test_run_images_fixed_height_matches_batch1_and_jax(tmp_path):
     assert sum(len(v) for v in ref.values()) > 3    # real poses, not dummies
 
 
+def test_coco_records_equal_the_jax_loop():
+    """The port's whole-array `poses_to_coco_results` against the JAX
+    package's per-keypoint loop on fuzzed poses (zero rows and joints,
+    coordinates that round to zero, -0.0, NaN): equal records, the same
+    Python types in every keypoint and score."""
+    rng = np.random.RandomState(11)
+    for _ in range(400):
+        P, J = rng.randint(0, 10), rng.choice([14, 17])
+        p = (rng.randn(P, J, 6) * rng.choice([1, 100, 1000])).astype(
+            np.float32)
+        if P:
+            p[rng.rand(P, J) < 0.3] = 0.0
+            p[rng.randint(P)] = 0.0
+            i, j = rng.randint(P), rng.randint(J)
+            p[i, j, :2] = rng.choice([0.004, -0.004, -0.0])
+            if rng.rand() < 0.2:
+                p[rng.randint(P), rng.randint(J), rng.randint(3)] = np.nan
+        ours = harness.poses_to_coco_results(p, 7)
+        ref = jharness.poses_to_coco_results(p, 7)
+        assert json.dumps(ours) == json.dumps(ref)
+        for a, b in zip(ours, ref):
+            assert [type(x) for x in a['keypoints']] == \
+                [type(x) for x in b['keypoints']]
+            assert type(a['score']) is type(b['score'])
+
+
 def test_evaluate_cli_smoke(tmp_path):
     """`cli.evaluate.main` on the CPU over .npy images: fixed height with
     flip-test, then stride-resolution decode from a reference-style

@@ -8,6 +8,7 @@ is present. Needs no JAX, so it runs where only PyTorch is installed:
 """
 import dataclasses
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -806,6 +807,137 @@ def test_export_with_decode_on_the_card(cuda, tmp_path):
         (before[0] + 1, before[1] + 1)
     for a, b in zip(got, eager):
         assert torch.equal(a, b)
+
+
+# --- the eval loop on the card: sync-free issue, overlapped fetch -------- #
+
+# route -> (dataset, flip test, input (h, w), decoder settings): the square
+# peaks route, fixed height's non-square route with flip (upsample +
+# block top-k), the stride-resolution route (NMS + top-k)
+INFER_ROUTES = {
+    'square': ('coco', False, (64, 64), {}),
+    'fh_flip': ('crowdpose', True, (64, 128), {}),
+    'lowres': ('coco', False, (64, 64), dict(upsampled_decode=False)),
+}
+ROUTE_KERNEL = {'square': peaks.peaks_topk, 'fh_flip': topk.topk,
+                'lowres': nms_topk.nms_topk}
+
+
+def tiny_eval_model(device, dataset, flip, **decoder):
+    """A tiny fp32 PoseNet of the dataset's heads on `device` and its infer
+    function; zero thresholds, so random weights still give poses."""
+    from offsetguided_tpu_torch.config.defaults import (HeadsConfig,
+                                                        ModelConfig,
+                                                        SkeletonConfig)
+    from offsetguided_tpu_torch.decoder import PostProcessor
+    from offsetguided_tpu_torch.eval.harness import make_infer_fn
+    from offsetguided_tpu_torch.models import PoseNet
+    sk = SkeletonConfig.for_dataset(dataset)
+    cfg = ModelConfig(n_stacks=1, hg_order=2, dims=(8, 8, 12),
+                      modules=(1, 1, 1), cnv_dim=8, compute_dtype='float32',
+                      heads=HeadsConfig(n_keypoints=sk.n_keypoints,
+                                        n_limbs=sk.n_limbs))
+    torch.manual_seed(0)
+    model = PoseNet(cfg).eval().to(device).prepare_inference()
+    pp = PostProcessor(skeleton=sk, cfg=DecoderConfig(
+        topk=8, thre_hmp=0.0, dist_max=40.0, person_thre=0.0, **decoder))
+    return model, pp, sk, make_infer_fn(model, pp, flip)
+
+
+@pytest.mark.parametrize('route', sorted(INFER_ROUTES))
+def test_warm_infer_issues_without_a_sync(cuda, route):
+    """After one warm call, the infer function (normalization, forward,
+    flip merge, decode and the route's kernels) makes no synchronizing
+    call: `set_sync_debug_mode('error')` raises on one. Twice, each equal
+    to the warm call bit for bit, the route's kernel launched each time."""
+    dataset, flip, (h, w), kw = INFER_ROUTES[route]
+    _, _, _, infer = tiny_eval_model(cuda, dataset, flip, **kw)
+    x = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, (2, h, w, 3), dtype=np.uint8)).to(cuda)
+    warm = infer(x)
+    torch.cuda.synchronize()
+    kernel = ROUTE_KERNEL[route]
+    before = kernel.launches
+    outs = []
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(2):
+            outs.append(infer(x))
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert int(warm[2].sum()) > 0
+    for out in outs:
+        for a, b in zip(out, warm):
+            assert torch.equal(a, b)
+
+
+def test_run_images_equals_batch_by_batch_fetches(cuda, tmp_path):
+    """`run_images` on the card (pinned copies, batch N+1 issued before N
+    is fetched) gives the records the loop makes when it fetches each
+    batch with `.cpu()` before issuing the next: fixed height, flip, three
+    padded widths, a partial batch at each shape change."""
+    import json
+
+    from offsetguided_tpu_torch.config.defaults import EvalConfig
+    from offsetguided_tpu_torch.data import transforms as T
+    from offsetguided_tpu_torch.data.coco import CocoJson
+    from offsetguided_tpu_torch.eval import harness
+    from offsetguided_tpu_torch.utils.profiling import RECORDER
+    rng = np.random.RandomState(6)
+    # height 64; widths padded to 64, 128 and 192
+    widths = [40, 60, 60, 100, 110, 120, 120, 120, 150, 170, 180]
+    images = []
+    (tmp_path / 'images').mkdir()
+    for i, w in enumerate(widths, start=1):
+        np.save(tmp_path / 'images' / f'{i}.npy',
+                rng.randint(0, 256, (64, w, 3), dtype=np.uint8))
+        images.append({'id': i, 'file_name': f'{i}.npy', 'height': 64,
+                       'width': w})
+    ann = tmp_path / 'annotations.json'
+    ann.write_text(json.dumps({'images': images, 'annotations': [],
+                               'categories': [{'id': 1, 'name': 'person'}]}))
+    model, pp, sk, infer = tiny_eval_model(cuda, 'crowdpose', True)
+    cfg = EvalConfig(long_edge=64, fixed_height=True, max_stride=32,
+                     width_bucket=64, flip_test=True, batch_size=4,
+                     io_workers=2)
+    coco = CocoJson(str(ann))
+    t_begin = time.perf_counter()
+    got = harness.run_images(model, pp, coco, str(tmp_path / 'images'), cfg,
+                             skeleton=sk, all_images=True)
+    t_end = time.perf_counter()
+
+    ids = sorted(harness.eval_image_ids(coco, all_images=True),
+                 key=lambda i: coco.image_info(i)['width']
+                 / coco.image_info(i)['height'])
+    loaded = [harness._load_eval_image(coco, str(tmp_path / 'images'), i,
+                                       cfg, sk.n_keypoints) for i in ids]
+    batches, cur = [], []
+    for item in loaded:
+        if cur and item[1].shape != cur[0][1].shape:
+            batches.append(cur)
+            cur = []
+        cur.append(item)
+        if len(cur) == cfg.batch_size:
+            batches.append(cur)
+            cur = []
+    batches.append(cur)
+    assert len({b[0][1].shape for b in batches}) == 3
+    assert sum(len(b) < cfg.batch_size for b in batches) >= 2
+    want = []
+    for batch in batches:
+        imgs = [img for _, img, _ in batch]
+        imgs += [np.zeros_like(imgs[0])] * (cfg.batch_size - len(imgs))
+        poses, _, counts = infer(torch.from_numpy(np.stack(imgs)).to(cuda))
+        poses, counts = poses.cpu().numpy(), counts.cpu().numpy()
+        for i, (img_id, _, meta) in enumerate(batch):
+            inv = T.annotations_inverse(poses[i][:int(counts[i])], meta)
+            want.extend(harness.poses_to_coco_results(inv, img_id))
+    assert got == want
+    assert any(r['score'] != 0.01 for r in got)
+    w = RECORDER.window(t_begin, t_end)
+    assert len(w.overlaps) == len(batches)
 
 
 # --- data parallel on the card, and the progressive JPEG bodies ---------- #

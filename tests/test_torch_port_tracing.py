@@ -1,12 +1,15 @@
 """The port's span recorder (`utils/profiling.py::RECORDER`) on the CPU:
 the Batcher's request records and batch stages against the latency a
 client measures, `run_images`' spans a dispatched batch, the bounded
-rings, the window filter, and `profiling.trace`'s export of the
-recorder's records beside the profiler's own ranges."""
+rings, the window filter, `run_images`' overlap flags and the
+`overlap_share.infer` reader of them, and `profiling.trace`'s export of
+the recorder's records beside the profiler's own ranges."""
+import importlib.util
 import json
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -157,13 +160,64 @@ def test_run_images_records_one_set_of_spans_a_batch(tmp_path):
     assert not w.gaps
 
 
+def test_run_images_records_one_overlap_flag_a_batch(tmp_path):
+    """On the CPU `run_images` records one overlap flag a dispatched
+    batch, each False: nothing runs behind the host there."""
+    img_dir, ann = synthetic.make_hard_dataset(str(tmp_path), n_images=5,
+                                               seed=4, ext='npy')
+    model, pp, _ = _tiny_infer()
+    cfg = EvalConfig(long_edge=64, fixed_height=True, max_stride=32,
+                     width_bucket=64, batch_size=2, io_workers=2)
+    t_begin = time.perf_counter()
+    run_images(model, pp, CocoJson(ann), img_dir, cfg, all_images=True)
+    w = RECORDER.window(t_begin, time.perf_counter())
+    dispatched = sorted(b for b, st in w.batches.items() if 'eval.h2d' in st)
+    assert len(dispatched) >= 3
+    assert sorted(o.batch for o in w.overlaps) == dispatched
+    assert not any(o.in_flight for o in w.overlaps)
+
+
+def overlap_reader():
+    path = (Path(__file__).resolve().parents[1] / 'benchmark' / 'metrics'
+            / 'overlap_share.infer.py')
+    spec = importlib.util.spec_from_file_location('overlap_share', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_overlap_share_reader_counts_the_windows_batches(monkeypatch):
+    """`overlap_share.infer` on a hand-built recorder: the share of the
+    flags True among the batches that start in the window."""
+    rec = Recorder()
+    # batch b starts at second b; batches 0-1 and 8-9 lie outside [2, 8)
+    for b in range(10):
+        rec.add_span('eval.stack', b, b + 0.5, b)
+        rec.overlaps.append((b, b % 3 != 0))
+    monkeypatch.setattr(profiling, 'RECORDER', rec)
+    # batches 2-7: 3 and 6 were enqueued with nothing in flight
+    share = overlap_reader().read({'t0': 2.0, 'seconds': 6.0})
+    assert share == pytest.approx(100.0 * 4 / 6)
+
+
+def test_overlap_share_reader_gives_none_without_records(monkeypatch):
+    rec = Recorder()
+    rec.add_span('serve.stack', 0.0, 0.5, 0)        # a batch, no flags
+    monkeypatch.setattr(profiling, 'RECORDER', rec)
+    reader = overlap_reader()
+    assert reader.read({'t0': 0.0, 'seconds': 1.0}) is None
+    assert reader.read({'t0': 5.0, 'seconds': 1.0}) is None
+
+
 def test_rings_stay_bounded():
     rec = Recorder(capacity=16)
     for i in range(100):
         rec.stop(rec.start('s'), i)
         rec.requests.append((i, i, 0.0, 1.0, 2.0))
         rec.gaps.append((i, i - 1, 0.5))
+        rec.overlaps.append((i, True))
     assert len(rec.spans) == len(rec.requests) == len(rec.gaps) == 16
+    assert len(rec.overlaps) == 16
     assert [s[3] for s in rec.spans] == list(range(84, 100))
     assert [r[0] for r in rec.requests] == list(range(84, 100))
 
