@@ -2,9 +2,9 @@
 
 `torch.utils.flop_counter.FlopCounterMode` over one image's forward of
 `reference.model.PlainPoseNet` on the meta device (no memory, no
-compute): 2 FLOPs a multiply-accumulate of every convolution, the heads'
-included. The port's modules are never counted, so a change to the
-port's model code cannot change the yardstick.
+compute): 2 FLOPs a multiply-accumulate of every convolution and Linear
+layer, the heads' included. The port's modules are never counted, so a
+change to the port's model code cannot change the yardstick.
 """
 from __future__ import annotations
 

@@ -116,14 +116,17 @@ def make_state(cfg: Dict, traffic: Dict, seed: int, device) -> Dict:
 
 
 def model_config(cfg: Dict):
-    """The port's ModelConfig of a configuration file."""
+    """The port's ModelConfig of a configuration file; the Hourglass-104
+    widths (`cnv_dim`, `hg_order`, `dims`, `modules`) where the file has
+    them, else `ModelConfig`'s defaults."""
     from offsetguided_tpu_torch.config.defaults import HeadsConfig, ModelConfig
     heads = HeadsConfig(n_keypoints=len(cfg['keypoints']),
                         n_limbs=len(cfg['skeleton']))
+    widths = {k: cfg[k] for k in ('cnv_dim', 'hg_order') if k in cfg}
+    widths.update({k: tuple(cfg[k]) for k in ('dims', 'modules') if k in cfg})
     return ModelConfig(basenet=cfg['basenet'], n_stacks=cfg['n_stacks'],
-                       cnv_dim=cfg['cnv_dim'], hg_order=cfg['hg_order'],
-                       dims=tuple(cfg['dims']), modules=tuple(cfg['modules']),
-                       heads=heads, compute_dtype=cfg['compute_dtype'])
+                       heads=heads, compute_dtype=cfg['compute_dtype'],
+                       **widths)
 
 
 def device_record(n_chips: int) -> Dict:

@@ -1,12 +1,14 @@
 """Whole runs of the harness on the CPU at a tiny size, and on the card.
 
-A temporary checkout holds the benchmark's files plus a tiny
-configuration, two tiny traffic mixes, their limits and one more metric,
-all added as new files and entries, none edited: so these tests also show
-that a cell, a configuration, a mix and a metric are additions. The runs
+A temporary checkout holds the benchmark's files plus two tiny
+configurations (a narrow Hourglass-104, and the 4-stage hourglass at its
+own widths with one stack), three tiny traffic mixes, their limits and
+one more metric, all added as new files and entries, none edited: so
+these tests also show that a cell, a configuration whose `basenet` names
+another plain network, a mix and a metric are additions. The runs
 skip the harness's look for a chip and drive the rest: set-up, window,
 the output check against the plain reference. A sound run is correct (at
-float32 the port's CPU path equals the reference exactly); each planted
+float32 the port's CPU path meets the reference to rounding); each planted
 fault and the float8 control make `correct` false.
 """
 from __future__ import annotations
@@ -28,6 +30,12 @@ import run  # noqa: E402
 
 TINY = {'n_stacks': 1, 'hg_order': 2, 'dims': [8, 8, 12],
         'modules': [1, 1, 1], 'cnv_dim': 8, 'compute_dtype': 'float32'}
+# the 4-stage net names only its backbone and depth; its scenes are 128
+# high, a multiple of its stride of 64
+TINY4 = {'basenet': 'hourglass4stage', 'n_stacks': 1,
+         'compute_dtype': 'float32'}
+HG104_WIDTHS = ('hg_order', 'dims', 'modules', 'cnv_dim')
+CELLS = ['tiny.serve', 'tiny.eval', 'tiny4.serve', 'tiny4.eval']
 LIMITS = {'limits': {'maps_rel_err': 1e-4, 'decode_mismatch': 0.0,
                      'answer_mismatch': 0.0, 'inputs_unmatched': 0.0}}
 EXTRA_METRIC = '''"""Images a second of the window, per stream."""
@@ -45,6 +53,9 @@ def _tiny_root(tmp: Path) -> tuple:
     cfg = json.loads((HERE / 'configs' / 'hg104-coco.json').read_text())
     cfg.update(TINY, name='tiny')
     (b / 'configs' / 'tiny.json').write_text(json.dumps(cfg))
+    cfg = {k: v for k, v in cfg.items() if k not in HG104_WIDTHS}
+    cfg.update(TINY4, name='tiny4')
+    (b / 'configs' / 'tiny4.json').write_text(json.dumps(cfg))
     serve = json.loads((HERE / 'traffic' / 'serve.json').read_text())
     serve.update(sizes=[[96, 128], [128, 96], [128, 128]], n_scenes=4,
                  calib_hw=[128, 128], long_edge=128, batch=2, concurrency=3,
@@ -55,20 +66,24 @@ def _tiny_root(tmp: Path) -> tuple:
               calib_hw=[128, 128], long_edge=128, max_stride=32,
               width_bucket=64, batch=2, io_workers=2)
     (b / 'traffic' / 'tiny-eval.json').write_text(json.dumps(ev))
+    ev.update(max_stride=64)
+    (b / 'traffic' / 'tiny4-eval.json').write_text(json.dumps(ev))
     (b / 'metrics' / 'stream_rate.py').write_text(EXTRA_METRIC)
     bench = json.loads((ROOT / 'BENCHMARK.json').read_text())
-    bench['configs'].append({'name': 'tiny', 'source': 'test',
-                             'file': 'benchmark/configs/tiny.json',
-                             'reduced': [], 'why': 'test'})
-    for name, traffic in (('tiny.serve', 'tiny-serve'),
-                          ('tiny.eval', 'tiny-eval')):
-        bench['workloads'].append({'name': name, 'config': 'tiny',
+    for name in ('tiny', 'tiny4'):
+        bench['configs'].append({'name': name, 'source': 'test',
+                                 'file': f'benchmark/configs/{name}.json',
+                                 'reduced': [], 'why': 'test'})
+    for name, traffic in zip(CELLS, ('tiny-serve', 'tiny-eval', 'tiny-serve',
+                                     'tiny4-eval')):
+        bench['workloads'].append({'name': name,
+                                   'config': name.split('.')[0],
                                    'traffic': traffic, 'chips': 1,
                                    'why': 'test'})
         (b / 'limits' / f'{name}.json').write_text(json.dumps(LIMITS))
     for m in bench['end_to_end'] + bench['per_layer']:
         if 'workloads' in m:
-            m['workloads'] += ['tiny.serve', 'tiny.eval']
+            m['workloads'] += CELLS
     bench['end_to_end'].append({'name': 'stream_rate', 'unit': 'img/s',
                                 'better': 'higher', 'bound': 0.05,
                                 'source': 'host_clock',
@@ -87,7 +102,7 @@ def _run(root, workload, **kw):
                         device=kw.pop('device', 'cpu'), root=path, **kw)
 
 
-@pytest.mark.parametrize('workload', ['tiny.serve', 'tiny.eval'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_sound_run_is_correct_and_reports_its_metrics(cpu_root, workload):
     r = _run(cpu_root, workload)
     assert r['correct'], r['checks']
@@ -98,18 +113,19 @@ def test_sound_run_is_correct_and_reports_its_metrics(cpu_root, workload):
     assert r['diagnostics']['own_maps_pose_mismatch']['widest'] == 0.0
     assert {'infer_img_s', 'setup_s'} <= set(r['metrics'])
     assert list(r)[-1] == 'checks'
-    if workload == 'tiny.serve':
+    if workload.endswith('.serve'):
         assert 'request_p95_ms' in r['metrics']
+    if workload == 'tiny.serve':
         assert r['metrics']['stream_rate']['value'] > 0    # the added metric
 
 
-@pytest.mark.parametrize('workload', ['tiny.serve', 'tiny.eval'])
+@pytest.mark.parametrize('workload', CELLS)
 @pytest.mark.parametrize('fault', ['half_batch', 'altered'])
 def test_a_planted_fault_is_not_correct(cpu_root, workload, fault):
     assert not _run(cpu_root, workload, fault=fault)['correct']
 
 
-@pytest.mark.parametrize('workload', ['tiny.serve', 'tiny.eval'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_the_float8_control_is_not_correct(cpu_root, workload):
     r = _run(cpu_root, workload, control='fp8')
     assert not r['correct']
@@ -135,7 +151,7 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('workload', ['tiny.serve', 'tiny.eval'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_on_the_card_stages_are_exact_and_the_control_is_far_off(
         card, tmp_path, workload):
     root = _tiny_root(tmp_path)

@@ -24,8 +24,9 @@ import harness  # noqa: E402
 import run  # noqa: E402
 from test_bench_cells import _tiny_root  # noqa: E402
 
-PROGRAM = ('batcher.wait_ms', 'batch_gap_ms.infer', 'loop_host_ms.infer',
-           'forward_host_ms.infer', 'decode_host_ms.infer')
+PROGRAM = ('batcher.wait_ms', 'batcher.wait_ms.img_s', 'batch_gap_ms.infer',
+           'loop_host_ms.infer', 'forward_host_ms.infer',
+           'decode_host_ms.infer')
 SEED = 2 ** 31 + 23
 
 
@@ -35,7 +36,8 @@ def cpu_root(tmp_path_factory):
 
 
 @pytest.mark.parametrize('workload, want', [
-    ('tiny.serve', {'batcher.wait_ms', 'loop_host_ms.infer',
+    ('tiny.serve', {'batcher.wait_ms', 'batcher.wait_ms.img_s',
+                    'loop_host_ms.infer',
                     'forward_host_ms.infer', 'decode_host_ms.infer'}),
     ('tiny.eval', {'loop_host_ms.infer', 'forward_host_ms.infer',
                    'decode_host_ms.infer'})])
@@ -50,6 +52,9 @@ def test_traced_run_reports_the_program_spans(cpu_root, workload, want):
         v = r['metrics'][m]['value']
         assert math.isfinite(v) and v > 0, (m, v)
         assert r['metrics'][m]['unit'] == 'ms'
+    # the serve tail, which a cell may report per layer
+    assert ('request_p95_ms.img_s' in r['metrics']) == (
+        workload == 'tiny.serve')
 
 
 def test_untraced_run_reports_none_of_them(cpu_root):

@@ -1,9 +1,12 @@
 """The yardstick's pieces on hand-made inputs: the scene generator, the
 latency percentiles and the window rate, the union of device intervals
 and the idle gaps by host span, the kernels' counts, the FLOP count, the
-keypoint comparison and the float8 rounding of the control."""
+keypoint comparison and the float8 rounding of the control; and the
+plain networks: Hourglass-104's seeded weights pinned, the 4-stage net
+against the port's."""
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import sys
@@ -25,10 +28,21 @@ import kernels  # noqa: E402
 import loadgen  # noqa: E402
 import run  # noqa: E402
 import scenes  # noqa: E402
-from reference.model import _q8  # noqa: E402
+from reference.model import (PlainPoseNet, _q8, make_weights,  # noqa: E402
+                             normalize, param_specs)
 from trace import Trace, union_seconds  # noqa: E402
 
 COCO = json.loads((HERE / 'configs' / 'hg104-coco.json').read_text())
+# a 4-stage configuration names its backbone and depth; the Hourglass-104
+# widths do not apply to it
+FOUR = {k: v for k, v in COCO.items()
+        if k not in ('hg_order', 'dims', 'modules', 'cnv_dim')}
+FOUR.update(basenet='hourglass4stage', compute_dtype='float32')
+# sha256 over the keys and bytes, in order, of Hourglass-104's seeded COCO
+# weights on the CPU at seed 2**31 + 12345, computed before the plain
+# networks moved to reference/nets/
+HG104_WEIGHTS_SHA256 = ('229398437a09555f1a94c5f069ad71f7'
+                        'b0df599e4032dcb01804034b6818a400')
 TRAFFIC = {'sizes': [[48, 64], [64, 48], [64, 64]], 'n_scenes': 7}
 
 
@@ -63,6 +77,9 @@ def test_window_rate_and_tail_readers():
     p95 = harness.metric_reader('request_p95_ms').read(
         {'latencies': [0.1] * 95 + [0.5] * 5})
     assert p95 == pytest.approx(500.0)
+    # the same tail where a cell reports it per layer
+    assert harness.metric_reader('request_p95_ms.img_s').read(
+        {'latencies': [0.1] * 95 + [0.5] * 5}) == p95
     fill = harness.metric_reader('batcher.fill').read(
         {'requests': 30, 'batches': 4})
     assert fill == 7.5
@@ -175,3 +192,86 @@ def test_float8_rounding_of_the_control():
     rel = ((q - x).abs() / x.abs().clamp(min=1e-3)).max()
     assert 0.01 < float(rel) < 0.07        # 3 mantissa bits: 2^-4
     assert float(_q8(x).abs().max()) == pytest.approx(3.0)
+
+
+def test_hourglass104_seeded_weights_hash_to_the_pinned_value():
+    """The seeded weights of every Hourglass-104 cell are bit for bit those
+    the benchmark made before a configuration could name its network:
+    same keys, order, draw and scaling."""
+    sd = make_weights(COCO, 2 ** 31 + 12345, 'cpu')
+    h = hashlib.sha256()
+    for k, v in sd.items():
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    assert h.hexdigest() == HG104_WEIGHTS_SHA256
+
+
+def test_a_basenet_without_a_plain_network_names_the_missing_file():
+    with pytest.raises(FileNotFoundError, match=r'nets/hourglass9\.py'):
+        param_specs(dict(FOUR, basenet='hourglass9'))
+
+
+@pytest.mark.parametrize('n_stacks', [1, 4])
+def test_plain_4stage_net_equals_the_port(n_stacks):
+    """The plain 4-stage net and the port's `PoseNet` on the same seeded,
+    calibrated weights (loaded `strict=True`), 128^2, float32: every map
+    of every head and stack, the port unfolded in eval mode and with
+    BatchNorm folded as the timed path runs it. Tolerance 1e-4 relative
+    L2: both are float32 in different summation orders (the port's convs
+    channels_last, its BatchNorm `F.batch_norm` or folded into the
+    weights; the reference's NCHW with BatchNorm written out), which
+    reads 0.7-2.3e-5 over 1 and 4 stacks; one layer off reads 0.2 or
+    more (a dilation 5 as 4: 0.94, LeakyReLU slope 0.02: 0.22, no
+    squeeze-and-excitation: 0.63, no feedback: 0.49; at 2 stacks), and
+    the float8 control 0.4."""
+    from offsetguided_tpu_torch.models import PoseNet
+
+    cfg = dict(FOUR, n_stacks=n_stacks)
+    sd = make_weights(cfg, 2 ** 31 + 3, 'cpu')
+    g = torch.Generator().manual_seed(9)
+    noise = torch.randint(0, 256, (4, 128, 128, 3), generator=g,
+                          dtype=torch.uint8)
+    PlainPoseNet(cfg, sd).calibrate_(
+        normalize(noise, cfg['pixel_mean'], cfg['pixel_std']))
+    x = normalize(torch.randint(0, 256, (2, 128, 128, 3), generator=g,
+                                dtype=torch.uint8),
+                  cfg['pixel_mean'], cfg['pixel_std'])
+    ref = PlainPoseNet(cfg, sd)(x)
+    port = PoseNet(harness.model_config(cfg))
+    port.load_state_dict(sd, strict=True)
+    port.eval()
+    with torch.no_grad():
+        outs = [port(x)]
+        outs.append(port.prepare_inference()(x))
+    for out in outs:
+        for k in ('hmp', 'bg', 'jomp', 'omp', 'scmp'):
+            assert len(out[k]) == len(ref[k]) == n_stacks
+            for p, r in zip(out[k], ref[k]):
+                assert float((p - r).norm() / r.norm()) < 1e-4, k
+
+
+@pytest.mark.parametrize('n_stacks, gmacs, params_m',
+                         [(2, 86.40, 32.45), (4, 154.12, 63.95)])
+def test_4stage_flops_and_parameters_equal_the_port_count(n_stacks, gmacs,
+                                                          params_m):
+    """`mfu.infer`'s count of the plain 4-stage net at 512^2 against
+    FlopCounterMode over the port's `PoseNet` on the meta device, and both
+    against the figures counted so (the published 4-stack IMHN's 129.0 M
+    and 269.9 G include the 5-scale supervision both packages leave
+    out)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from offsetguided_tpu_torch.models import PoseNet
+
+    cfg = dict(FOUR, n_stacks=n_stacks)
+    with torch.device('meta'):
+        port = PoseNet(harness.model_config(cfg)).eval()
+        with FlopCounterMode(display=False) as counter:
+            port(torch.empty(1, 512, 512, 3))
+    port_flops = counter.get_total_flops()
+    port_params = sum(p.numel() for p in port.parameters())
+    plain = flops.forward_flops(cfg, 512, 512)
+    assert plain == pytest.approx(port_flops, rel=1e-3)
+    assert flops.n_params(cfg) == pytest.approx(port_params, rel=1e-3)
+    assert plain / 2e9 == pytest.approx(gmacs, rel=1e-3)
+    assert flops.n_params(cfg) / 1e6 == pytest.approx(params_m, rel=1e-3)
