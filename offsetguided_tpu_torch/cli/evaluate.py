@@ -12,6 +12,8 @@ random seeded weights with BatchNorm calibrated at `--long-edge`
 `data/coco.py::read_image`: JPEG and PNG through the port's codec
 (`data/codec.py`), `.npy` uint8 RGB with numpy.
 
+`--basenet hourglass4stage` evaluates a 4-stage checkpoint of the port's
+trainer (`--n-stacks`: its depth, by default the published 4).
 `--dataset crowdpose` evaluates the CrowdPose 14-keypoint configuration:
 the heads follow the skeleton, and the metric is the CrowdPose protocol
 (AP and the easy / medium / hard crowdIndex bands). Not taken here:
@@ -31,6 +33,7 @@ import torch
 
 
 def cli(argv=None):
+    from .serve import add_network_flags
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -95,7 +98,7 @@ def cli(argv=None):
     p.add_argument('--modules', default=None,
                    help='comma-separated per-level residual-module counts')
     p.add_argument('--cnv-dim', type=int, default=None)
-    p.add_argument('--n-stacks', type=int, default=None)
+    add_network_flags(p)
     args = p.parse_args(argv)
     bucket = max(args.width_bucket, args.max_stride)
     if bucket % args.max_stride != 0:
@@ -105,12 +108,15 @@ def cli(argv=None):
 
 
 def model_config(args):
-    """Hourglass-104 (or `--debug-tiny-model`'s narrow fp32 network) with
-    the heads of `--dataset`'s skeleton."""
+    """Hourglass-104 (or `--debug-tiny-model`'s narrow fp32 network, or
+    the `--basenet` / `--n-stacks` network) with the heads of
+    `--dataset`'s skeleton; the width flags shape Hourglass-104 alone."""
     from ..config.defaults import HeadsConfig, ModelConfig, SkeletonConfig
+    from .serve import network_kwargs
     skeleton = SkeletonConfig.for_dataset(args.dataset)
     heads = HeadsConfig(n_keypoints=skeleton.n_keypoints,
                         n_limbs=skeleton.n_limbs)
+    net = network_kwargs(args)
     if args.debug_tiny_model:
         return ModelConfig(n_stacks=1, hg_order=2, dims=(8, 8, 12),
                            modules=(1, 1, 1), cnv_dim=8,
@@ -124,9 +130,7 @@ def model_config(args):
         kw['modules'] = tuple(int(m) for m in args.modules.split(','))
     if args.cnv_dim is not None:
         kw['cnv_dim'] = args.cnv_dim
-    if args.n_stacks is not None:
-        kw['n_stacks'] = args.n_stacks
-    return ModelConfig(heads=heads, **kw)
+    return ModelConfig(heads=heads, **net, **kw)
 
 
 def main(argv=None) -> Dict[str, float]:

@@ -27,7 +27,11 @@ Endpoints:
     python -m offsetguided_tpu_torch.cli.serve [--port 8080] [--flip-test]
 
 `--dataset crowdpose` serves the CrowdPose configuration: heads and poses
-of 14 keypoints.
+of 14 keypoints. `--basenet hourglass4stage` serves the 4-stage hourglass
+(SimplePose's IMHN, its deep supervision collapsed to the top scale),
+`--n-stacks` sets the depth (by default 2 stacks of Hourglass-104, or
+the published 4 of the 4-stage net); its weights come from a training
+checkpoint of the port (`--checkpoint`) or are random.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ def cli(argv=None):
     p.add_argument('--torch-checkpoint', default=None,
                    help='reference .pth checkpoint to serve')
     p.add_argument('--dataset', default='coco', choices=['coco', 'crowdpose'])
+    add_network_flags(p)
     p.add_argument('--long-edge', type=int, default=640)
     p.add_argument('--flip-test', action='store_true')
     p.add_argument('--batch-size', type=int, default=8,
@@ -85,17 +90,54 @@ def cli(argv=None):
     return p.parse_args(argv)
 
 
+# the networks a checkpoint of the port's trainer can be served with, and
+# each one's stacks unless `--n-stacks` says otherwise: Hourglass-104's 2,
+# the published IMHN's 4
+BASENET_STACKS = {'hourglass104': 2, 'hourglass4stage': 4}
+
+
+def add_network_flags(p: argparse.ArgumentParser) -> None:
+    """`--basenet` and `--n-stacks`, as the server and the evaluator take
+    them."""
+    p.add_argument('--basenet', default='hourglass104',
+                   choices=sorted(BASENET_STACKS),
+                   help='the backbone (hourglass4stage: the 4-stage '
+                        'hourglass, fixed widths)')
+    p.add_argument('--n-stacks', type=int, default=None,
+                   help="stacks (default: the network's own, "
+                        + ', '.join(f'{k} {v}'
+                                    for k, v in BASENET_STACKS.items())
+                        + ')')
+
+
+def network_kwargs(args) -> dict:
+    """`basenet` and `n_stacks` of `add_network_flags`' flags (a tool
+    without them gets Hourglass-104's); `--debug-tiny-model` takes
+    Hourglass-104 alone."""
+    basenet = getattr(args, 'basenet', 'hourglass104')
+    n_stacks = getattr(args, 'n_stacks', None)
+    if basenet != 'hourglass104' and getattr(args, 'debug_tiny_model',
+                                             False):
+        raise ValueError(f'--debug-tiny-model narrows Hourglass-104; '
+                         f'--basenet {basenet} has fixed widths')
+    return {'basenet': basenet,
+            'n_stacks': BASENET_STACKS[basenet] if n_stacks is None
+            else n_stacks}
+
+
 def model_config(args, skeleton: SkeletonConfig = SkeletonConfig()
                  ) -> ModelConfig:
     """The JAX server's model: Hourglass-104 in bf16, or with
-    `--debug-tiny-model` its narrow fp32 network; heads of `skeleton`."""
+    `--debug-tiny-model` its narrow fp32 network; `--basenet` and
+    `--n-stacks` pick another network or depth; heads of `skeleton`."""
     heads = HeadsConfig(n_keypoints=skeleton.n_keypoints,
                         n_limbs=skeleton.n_limbs)
+    net = network_kwargs(args)
     if args.debug_tiny_model:
         return ModelConfig(n_stacks=1, hg_order=2, dims=(8, 8, 12),
                            modules=(1, 1, 1), cnv_dim=8,
                            compute_dtype='float32', heads=heads)
-    return ModelConfig(heads=heads)
+    return ModelConfig(heads=heads, **net)
 
 
 def load_weights(args, model_cfg: ModelConfig) -> Optional[dict]:
@@ -105,11 +147,17 @@ def load_weights(args, model_cfg: ModelConfig) -> Optional[dict]:
     a reference `.pth` (a full network or a bare backbone) through
     `load_reference_into`, whose unmatched entries are printed and keep
     the fresh values; the port's training checkpoint through
-    `load_checkpoint` without its optimizer state."""
+    `load_checkpoint` without its optimizer state. A reference `.pth` is
+    Hourglass-104's: no other network has one."""
     from ..models.checkpoint import load_checkpoint, load_reference_into
     from ..models.network import init_reference_
     if not (args.torch_checkpoint or args.checkpoint):
         return None
+    if args.torch_checkpoint and model_cfg.basenet != 'hourglass104':
+        raise ValueError(
+            f'--torch-checkpoint loads a reference Hourglass-104 .pth; '
+            f'basenet {model_cfg.basenet!r} has none: serve its training '
+            f'checkpoint with --checkpoint')
     model = init_reference_(PoseNet(model_cfg),
                             torch.Generator().manual_seed(0))
     if args.torch_checkpoint:

@@ -276,6 +276,7 @@ def run_images(model: torch.nn.Module, pp: PostProcessor, coco: CocoJson,
     if batch_imgs:
         flush()
     drain()
+    rec.leave_loop()               # later forwards on this thread: no batch
     return results
 
 

@@ -12,6 +12,11 @@ Same structure as the JAX package's `models/hourglass4stage.py`:
   channels, whatever `cnv_dim` says;
 - between stacks the feedback `x + ConvBN1x1(feat)` (no activation).
 
+In a serving or evaluation loop's sampled batches the device time of the
+stem's dilated convs and concat (`net.dilated`) and of each stack's
+squeeze-and-excitation (`net.se`) is recorded
+(`utils/profiling.py::Recorder.device_stage`).
+
 `ModelConfig`'s hourglass104 widths (`dims`, `modules`, `hg_order`,
 `cnv_dim`) do not apply, as in the JAX package; `n_stacks` and `remat` do.
 The reference declares this network without weights, so its module names
@@ -27,6 +32,7 @@ import torch
 from torch import nn
 
 from ..config.defaults import ModelConfig
+from ..utils.profiling import RECORDER
 from .layers import (BottleneckResidual, ConvBN, SELayer, max_pool2x,
                      remat_call, upsample_nearest2x)
 
@@ -46,7 +52,8 @@ class DilatedStem(nn.Module):
 
     def forward(self, x):
         x = self.res2(max_pool2x(self.res1(self.conv(x))))
-        return torch.cat([x, self.dilated(x)], dim=1)
+        with RECORDER.device_stage('net.dilated', x):
+            return torch.cat([x, self.dilated(x)], dim=1)
 
 
 class HourglassBlock(nn.Module):

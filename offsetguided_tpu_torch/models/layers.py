@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import RECORDER
+
 
 class _TrainNorm(torch.autograd.Function):
     """Train-mode BatchNorm over (N, H, W) in fp32 (or wider). Saves only
@@ -242,7 +244,9 @@ class SELayer(nn.Module):
     ReLU, Linear c/16 -> c, sigmoid, channel scale. The Linear layers run
     in the type of their weights (bf16 in the eval-mode backbone, as the
     JAX package's Dense layers run in the compute type; under autocast in
-    training)."""
+    training). In a serving or evaluation loop's sampled batches its
+    device time is recorded as the stage `net.se`
+    (`utils/profiling.py::Recorder.device_stage`)."""
 
     def __init__(self, ch: int, reduction: int = 16):
         super().__init__()
@@ -250,10 +254,11 @@ class SELayer(nn.Module):
         self.fc2 = nn.Linear(ch // reduction, ch)
 
     def forward(self, x):
-        s = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
-            dim=(2, 3)).to(self.fc1.weight.dtype)
-        s = torch.sigmoid(self.fc2(torch.relu(self.fc1(s))))
-        return x * s[:, :, None, None].to(x.dtype)
+        with RECORDER.device_stage('net.se', x):
+            s = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
+                dim=(2, 3)).to(self.fc1.weight.dtype)
+            s = torch.sigmoid(self.fc2(torch.relu(self.fc1(s))))
+            return x * s[:, :, None, None].to(x.dtype)
 
 
 def max_pool2x(x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,9 @@ per-call device time and per-stage timing.
 
 Port of the JAX package's `utils/profiling.py`, plus the recorder.
 `RECORDER` keeps the serving and evaluation loops' stage spans, the
-requests' queue waits, the device gaps between batches and whether each
-evaluation batch was enqueued behind one still in flight in bounded
+requests' queue waits, the device gaps between batches, whether each
+evaluation batch was enqueued behind one still in flight and the device
+time of a network's named stages (`Recorder.device_stage`) in bounded
 rings on the `time.perf_counter` clock, at a few microseconds a batch,
 for as long as the process lives; `Recorder.window` reads the batches
 that start inside an interval. `trace` records a torch.profiler run (CUDA
@@ -31,6 +32,7 @@ from time import perf_counter
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 # the rings' length: a serving batch leaves ~10 spans, so the last ~6,000
 # batches' spans and the last 65,536 requests stay readable
@@ -69,6 +71,14 @@ class OverlapRecord(NamedTuple):
                             # enqueued
 
 
+class StageRecord(NamedTuple):
+    batch: int
+    name: str               # the stage, as `net.se`
+    ms: float               # device ms between its two CUDA events
+    shape: tuple            # the stage's input map, (N, C, H, W)
+    dtype: str              # the map's dtype, as `bfloat16`
+
+
 class Window(NamedTuple):
     """The records of the batches that start inside an interval."""
     batches: Dict[int, Dict[str, float]]    # batch -> span name -> seconds
@@ -76,24 +86,77 @@ class Window(NamedTuple):
     requests: List[RequestRecord]
     gaps: List[GapRecord]                   # both batches inside
     overlaps: List[OverlapRecord]
+    stages: List[StageRecord]
 
 
 class _Current(threading.local):
     batch = -1              # the thread's current batch; -1 outside a loop
 
 
+def _eager(x: torch.Tensor) -> bool:
+    """`x` is a plain CUDA tensor of an eager call: not traced by
+    `torch.export` or `torch.compile`, under no dispatch mode (such as
+    `FlopCounterMode`), and not on a stream that a CUDA graph captures."""
+    return (x.is_cuda and type(x) is torch.Tensor
+            and not torch.compiler.is_compiling()
+            and _get_current_dispatch_mode() is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _DeviceStage:
+    """One sampled stage: CUDA events before and after the block on the
+    current stream, queued in the recorder's `pending` until they have
+    completed."""
+
+    __slots__ = ('rec', 'name', 'batch', 'x', 'start', 'range')
+
+    def __init__(self, rec: 'Recorder', name: str, batch: int, x):
+        self.rec, self.name, self.batch, self.x = rec, name, batch, x
+
+    def __enter__(self):
+        self.rec.settle()
+        self.range = (torch.profiler.record_function(self.name).__enter__()
+                      if _profiler_on() else None)
+        self.start = self.rec._event(self.x.device)
+        return self
+
+    def __exit__(self, exc_type, *_):
+        x, rec = self.x, self.rec
+        self.x = None
+        if exc_type is None:            # a block that raised leaves none
+            rec.pending.append((self.batch, self.name, tuple(x.shape),
+                                str(x.dtype).replace('torch.', ''),
+                                self.start, rec._event(x.device), x.device))
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        return False
+
+
+_NO_STAGE = contextlib.nullcontext()
+
+
 class Recorder:
-    """Spans, request records, device gaps and overlap flags in rings of
-    `capacity` records each. Appends are single deque appends (atomic under the
-    interpreter lock), so recording takes no lock; batch and request
-    numbers come from process-wide counters. Nothing is written out until
-    `window` or `trace` reads the rings."""
+    """Spans, request records, device gaps, overlap flags and device
+    stages in rings of `capacity` records each. Appends are single deque
+    appends (atomic under the interpreter lock), so recording takes no
+    lock; batch and request numbers come from process-wide counters.
+    Nothing is written out until `window` or `trace` reads the rings."""
+
+    # a loop's batches whose number is a multiple of this time their
+    # device stages
+    STAGE_STRIDE = 4
 
     def __init__(self, capacity: int = CAPACITY):
         self.spans = collections.deque(maxlen=capacity)
         self.requests = collections.deque(maxlen=capacity)
         self.gaps = collections.deque(maxlen=capacity)
         self.overlaps = collections.deque(maxlen=capacity)
+        self.stages = collections.deque(maxlen=capacity)
+        # (batch, name, shape, dtype, start, end, device) of stages whose
+        # events may not have completed
+        self.pending = collections.deque()
+        self._pools: Dict[torch.device, list] = {}
+        self._settling = threading.Lock()
         self._batches = itertools.count()
         self._requests = itertools.count()
         self._local = _Current()
@@ -103,6 +166,48 @@ class Recorder:
         on (the batch of its spans opened without one)."""
         self._local.batch = b = next(self._batches)
         return b
+
+    def leave_loop(self) -> None:
+        """The calling thread's loop has ended: its later spans and stages
+        belong to no batch."""
+        self._local.batch = -1
+
+    def device_stage(self, name: str, x: torch.Tensor):
+        """A context timing the device work its block launches: in a
+        loop's batches whose number is a multiple of `STAGE_STRIDE`, for a
+        plain CUDA input `x` of an eager call (see `_eager`), CUDA events
+        from a reused pool on the current stream before and after the
+        block; a `StageRecord` of the block's input `x` once `settle` finds
+        the events completed. Elsewhere (outside a loop, on a CPU, while a
+        trace or a CUDA graph capture runs) a no-op. Adds no
+        synchronization; while a profiler session records the thread the
+        stage is a `record_function` range of its name too."""
+        b = self._local.batch
+        if b < 0 or b % self.STAGE_STRIDE or not _eager(x):
+            return _NO_STAGE
+        return _DeviceStage(self, name, b, x)
+
+    def _event(self, device: torch.device):
+        pool = self._pools.setdefault(device, [])
+        ev = pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+
+    def settle(self) -> None:
+        """Moves the pending stages whose end event has completed into
+        `stages`, oldest first, and their events back to the pool;
+        `Event.query()` waits for nothing, so a stage still queued on the
+        device stays pending."""
+        with self._settling:
+            pending = self.pending
+            while pending:
+                b, name, shape, dtype, start, end, device = pending[0]
+                if not end.query():
+                    break
+                pending.popleft()
+                self.stages.append((b, name, start.elapsed_time(end), shape,
+                                    dtype))
+                self._pools[device] += (start, end)
 
     def start(self, name: str) -> tuple:
         """Opens stage `name` on the calling thread; returns the token
@@ -134,8 +239,9 @@ class Recorder:
     def window(self, t0: float, t1: float) -> Window:
         """The records of the batches whose first span starts in [t0, t1):
         their stages' seconds summed by name, their spans, their requests,
-        the gaps whose two batches both start there, and their overlap
-        flags."""
+        the gaps whose two batches both start there, their overlap flags
+        and their device stages whose events have completed."""
+        self.settle()
         spans = [SpanRecord._make(s) for s in list(self.spans)]
         start: Dict[int, float] = {}
         for s in spans:
@@ -153,7 +259,9 @@ class Recorder:
                 if g[0] in keep and g[1] in keep]
         overlaps = [OverlapRecord._make(o) for o in list(self.overlaps)
                     if o[0] in keep]
-        return Window(batches, spans, requests, gaps, overlaps)
+        timed = [StageRecord._make(r) for r in list(self.stages)
+                 if r[0] in keep]
+        return Window(batches, spans, requests, gaps, overlaps, timed)
 
     def chrome_events(self, t0: float, t1: float, anchor: tuple,
                       base_ns: int = 0) -> list:

@@ -940,6 +940,76 @@ def test_run_images_equals_batch_by_batch_fetches(cuda, tmp_path):
     assert len(w.overlaps) == len(batches)
 
 
+def test_4stage_forward_times_its_device_stages(cuda, monkeypatch):
+    """A 4-stack 4-stage forward in a loop batch whose number is a multiple
+    of the stride records one `net.dilated` and four `net.se` stages, each
+    with its device ms and input map, without a host sync; a forward
+    outside a loop, in a batch off the stride, or under a CUDA graph
+    capture records none."""
+    from offsetguided_tpu_torch.config.defaults import ModelConfig
+    from offsetguided_tpu_torch.models import PoseNet
+    from offsetguided_tpu_torch.utils.profiling import RECORDER, StageRecord
+
+    model = PoseNet(ModelConfig(basenet='hourglass4stage', n_stacks=4)
+                    ).to(cuda).prepare_inference()
+    x = torch.rand(2, 128, 128, 3, device=cuda)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)
+
+    def sampled_batch():
+        while RECORDER.new_batch() % RECORDER.STAGE_STRIDE:
+            pass
+        return RECORDER._local.batch
+
+    def recorded():
+        return len(RECORDER.stages) + len(RECORDER.pending)
+
+    RECORDER.leave_loop()
+    forward()                           # warm, outside a loop
+    torch.cuda.synchronize()
+    n = recorded()
+    forward()
+    assert recorded() == n
+    b = sampled_batch()
+    syncs = []
+    monkeypatch.setattr(torch.cuda, 'synchronize',
+                        lambda *a, **k: syncs.append(a))
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        forward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        monkeypatch.undo()
+    assert not syncs
+    assert recorded() == n + 5
+    RECORDER.new_batch()                # off the stride
+    forward()
+    assert recorded() == n + 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # the capture's warm-up
+        for _ in range(2):
+            forward()
+    torch.cuda.current_stream().wait_stream(side)
+    sampled_batch()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        forward()
+    assert recorded() == n + 5
+    RECORDER.leave_loop()
+    graph.replay()
+    torch.cuda.synchronize()
+    RECORDER.settle()
+    assert not RECORDER.pending
+    got = [StageRecord._make(r) for r in RECORDER.stages if r[0] == b]
+    assert [r.name for r in got] == ['net.dilated'] + ['net.se'] * 4
+    assert all(r.ms > 0 and r.dtype == 'bfloat16' for r in got)
+    assert got[0].shape == (2, 128, 32, 32)
+    assert all(r.shape == (2, 256, 32, 32) for r in got[1:])
+
+
 # --- data parallel on the card, and the progressive JPEG bodies ---------- #
 
 def tiny_step_kw():
